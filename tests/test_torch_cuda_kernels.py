@@ -1,0 +1,96 @@
+"""K1 and K3 on the card against their plain versions at ragged shapes the
+edit path does not reach (odd spatial sizes, Cout not a multiple of the
+tile, Cin not a multiple of the staged chunk, batch 2 with a broadcast
+noise, every optional epilogue input on and off), and K1 both with and
+without its Cin split across blocks. Skipped (by a fixture) without a CUDA
+device; on the card run it with
+
+    W2E_TEST_TPU=1 python -m pytest tests/test_torch_cuda_kernels.py -q
+
+(``W2E_TEST_TPU=1`` keeps tests/conftest.py from importing JAX, which the
+card's machine does not have). fp32, TF32 off; bar 1e-5 relative to the
+output's largest magnitude.
+"""
+
+import pytest
+import torch
+
+from where2edit_tpu_torch.kernels import modconv1x1 as k3
+from where2edit_tpu_torch.kernels import modconv3x3 as k1
+
+REL = 1e-5
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,demod,noise,bias,act", [
+    (2, 5, 7, 12, 36, True, "batch", True, True),
+    (1, 17, 33, 64, 64, True, "shared", True, True),
+    (1, 4, 4, 512, 512, True, "shared", True, True),
+    (2, 6, 10, 100, 36, True, "batch", True, True),
+    (2, 9, 9, 8, 4, False, None, False, False),
+    (1, 3, 40, 20, 128, True, "shared", False, True),
+])
+def test_torch_cuda_modconv3x3(dev, b, h, w, cin, cout, demod, noise, bias, act):
+    g = torch.Generator(dev).manual_seed(cin + cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    n1 = k1.launches
+    args = (r(b, h, w, cin), r(b, cin), r(3, 3, cin, cout),
+            r(b, cout).abs() + 0.5 if demod else None,
+            {"batch": r(b, h, w), "shared": r(1, h, w), None: None}[noise],
+            r(1) if noise else None, r(cout) if bias else None, act)
+    got = k1.modconv3x3(*args)
+    torch.cuda.synchronize()
+    assert k1.launches == n1 + 1
+    assert _rel(got, k1.modconv3x3_plain(*args)) <= REL
+
+
+@pytest.mark.parametrize("b,p,cin,cout,demod,noise,bias,act,res", [
+    (2, 77, 40, 3, False, None, True, False, True),
+    (2, 300, 33, 5, True, "batch", True, True, False),
+    (1, 129, 576, 32, True, "shared", True, True, False),
+    (2, 64, 7, 1, True, "shared", False, True, True),
+])
+def test_torch_cuda_modconv1x1(dev, b, p, cin, cout, demod, noise, bias, act, res):
+    g = torch.Generator(dev).manual_seed(cin * cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    n3 = k3.launches
+    args = (r(b, p, cin), r(b, cin), r(cin, cout),
+            r(b, cout).abs() + 0.5 if demod else None,
+            {"batch": r(b, p), "shared": r(1, p), None: None}[noise],
+            r(1) if noise else None, r(cout) if bias else None, act,
+            r(b, p, cout) if res else None)
+    got = k3.modconv1x1(*args)
+    torch.cuda.synchronize()
+    assert k3.launches == n3 + 1
+    assert _rel(got, k3.modconv1x1_plain(*args)) <= REL
+
+
+def test_torch_cuda_wrappers_reject_bad_inputs(dev):
+    x = torch.randn(1, 4, 4, 6, device=dev)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        k1.modconv3x3(x, torch.randn(1, 6, device=dev),
+                      torch.randn(3, 3, 6, 8, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.modconv1x1(torch.randn(1, 8, 16, device=dev).transpose(1, 2),
+                      torch.randn(1, 8, device=dev), torch.randn(8, 3, device=dev))
+    with pytest.raises(ValueError, match="Cout"):
+        k3.modconv1x1(torch.randn(1, 8, 4, device=dev), torch.randn(1, 4, device=dev),
+                      torch.randn(4, 40, device=dev))

@@ -1,0 +1,50 @@
+"""The port stands alone: importing where2edit_tpu_torch and every one of
+its modules (in a fresh process) loads neither JAX nor any module of the JAX
+package; entry points run on CUDA unless told otherwise and refuse to carry
+on without a card."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import pkgutil, sys
+import where2edit_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    where2edit_tpu_torch.__path__, "where2edit_tpu_torch.")]
+for name in names:
+    __import__(name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "where2edit_tpu"))
+print(len(names), bad)
+"""
+
+
+def test_torch_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    count, bad = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20
+    assert bad == "[]"
+
+
+def test_torch_entry_points_need_a_card_unless_told():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
+    from where2edit_tpu_torch import resolve_device  # noqa: PLC0415
+    from where2edit_tpu_torch.cli import edit  # noqa: PLC0415
+    from where2edit_tpu_torch.demo.app import build_session  # noqa: PLC0415
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_session(32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        edit.main(["--text", "grey hair", "--stylegan_size", "32"])
+    assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,153 @@
+"""JAX-package variables → the port's state dicts.
+
+Inputs are the JAX package's variable trees as nested dicts of **numpy**
+arrays (``jax.tree.map(np.asarray, variables)``); this module imports no
+JAX. Outputs are name → torch tensor dicts in the reference rosinality /
+OpenAI-CLIP key layout that the port's modules use, so one set of weights
+drives both packages (the parity tests) and reference checkpoints load the
+same way.
+
+Layout maps: conv (kh, kw, I, O) → (1, O, I, kh, kw); linear (I, O) →
+(O, I); NHWC constants and noise buffers → NCHW.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from where2edit_tpu_torch.ops.upfirdn2d import make_kernel
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+def _mod_conv_w(a) -> torch.Tensor:
+    return _t(np.asarray(a).transpose(3, 2, 0, 1)[None])
+
+
+def _lin_w(a) -> torch.Tensor:
+    return _t(np.asarray(a).T)
+
+
+def _nchw(a) -> torch.Tensor:
+    return _t(np.asarray(a).transpose(0, 3, 1, 2))
+
+
+def _equal_linear(p: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": _lin_w(p["weight"]),
+            f"{prefix}.bias": _t(p["bias"])}
+
+
+def _styled_conv(p: dict, prefix: str, *, upsample: bool = False) -> dict:
+    out = {
+        f"{prefix}.conv.weight": _mod_conv_w(p["conv"]["weight"]),
+        f"{prefix}.noise.weight": _t(p["noise"]["weight"]),
+        f"{prefix}.activate.bias": _t(p["activate_bias"]),
+    }
+    if "modulation" in p["conv"]:
+        out.update(_equal_linear(p["conv"]["modulation"],
+                                 f"{prefix}.conv.modulation"))
+    if upsample:
+        out[f"{prefix}.conv.blur.kernel"] = _t(make_kernel([1, 3, 3, 1]) * 4)
+    return out
+
+
+def _to_rgb(p: dict, prefix: str, *, upsample: bool) -> dict:
+    out = {f"{prefix}.conv.weight": _mod_conv_w(p["conv"]["weight"]),
+           f"{prefix}.bias": _nchw(p["bias"])}
+    out.update(_equal_linear(p["conv"]["modulation"], f"{prefix}.conv.modulation"))
+    if upsample:
+        out[f"{prefix}.upsample.kernel"] = _t(make_kernel([1, 3, 3, 1]) * 4)
+    return out
+
+
+def generator_state_dict(variables: dict, size: int, n_mlp: int = 8) -> dict:
+    """``{"params", "noises"}`` of ``where2edit_tpu.models.Generator`` → the
+    port's ``Generator`` state dict."""
+    params = variables["params"]
+    noises = variables.get("noises", {})
+    n_oct = int(math.log2(size)) - 2
+    sd = {}
+    for i in range(n_mlp):  # style.0 is the PixelNorm
+        sd.update(_equal_linear(params[f"style_{i}"], f"style.{i + 1}"))
+    sd["input.input"] = _nchw(params["input"]["input"])
+    sd.update(_styled_conv(params["conv1"], "conv1"))
+    sd.update(_to_rgb(params["to_rgb1"], "to_rgb1", upsample=False))
+    for i in range(2 * n_oct):
+        sd.update(_styled_conv(params[f"convs_{i}"], f"convs.{i}",
+                               upsample=i % 2 == 0))
+    for i in range(n_oct):
+        sd.update(_to_rgb(params[f"to_rgbs_{i}"], f"to_rgbs.{i}", upsample=True))
+    for i in range(2 * n_oct + 1):
+        r = 2 ** ((i + 5) // 2)
+        key = f"noise_{i}"
+        sd[f"noises.{key}"] = (_nchw(noises[key]) if key in noises
+                               else torch.zeros(1, 1, r, r))
+    return sd
+
+
+def mapper_state_dict(variables: dict) -> dict:
+    """``{"params", "clusters"}`` of
+    ``FullSpaceMapperFEATClusterLinStyle`` → the port's state dict. The JAX
+    attention convs take S-space input and so have no ``modulation``
+    parameters; ``load_converted`` tolerates exactly those missing keys."""
+    params = variables["params"]
+    sd = {"initial_bias": _t(params["initial_bias"])}
+    for name, p in params.items():
+        if name.startswith("mapper_text_"):
+            c, j = name[len("mapper_text_"):].rsplit("_", 1)
+            sd.update(_equal_linear(p, f"mapper_text_{c}.{j}"))
+        elif name.startswith(("mapper_", "attention_textca_")):
+            sd.update(_equal_linear(p, name))
+        elif name.startswith("attention_"):
+            sd.update(_styled_conv(p, name))
+    if "clusters" in variables:
+        sd["initial_state"] = _t(variables["clusters"]["initial_state"])
+    return sd
+
+
+def clip_text_state_dict(variables: dict) -> dict:
+    """``where2edit_tpu.models.clip_model`` CLIP (or TextTransformer)
+    variables → the port's ``TextTransformer`` state dict; the scanned
+    Transformer's blocks are stacked along axis 0 and come apart here."""
+    p = variables["params"]
+    p = p.get("text", p)
+    blk = p["transformer"]["blocks"]["blk"]
+    sd = {
+        "token_embedding.weight": _t(p["token_embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+        "ln_final.weight": _t(p["ln_final"]["scale"]),
+        "ln_final.bias": _t(p["ln_final"]["bias"]),
+        "text_projection": _t(p["text_projection"]),
+    }
+    for i in range(np.asarray(blk["ln_1"]["scale"]).shape[0]):
+        pre = f"transformer.resblocks.{i}"
+        for ln in ("ln_1", "ln_2"):
+            sd[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"][i])
+            sd[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"][i])
+        a = blk["attn"]
+        sd[f"{pre}.attn.in_proj_weight"] = _lin_w(a["in_proj_weight"][i])
+        sd[f"{pre}.attn.in_proj_bias"] = _t(a["in_proj_bias"][i])
+        sd[f"{pre}.attn.out_proj.weight"] = _lin_w(a["out_proj_weight"][i])
+        sd[f"{pre}.attn.out_proj.bias"] = _t(a["out_proj_bias"][i])
+        for name in ("c_fc", "c_proj"):
+            d = blk[f"mlp_{name}"]
+            sd[f"{pre}.mlp.{name}.weight"] = _lin_w(d["kernel"][i])
+            sd[f"{pre}.mlp.{name}.bias"] = _t(d["bias"][i])
+    return sd
+
+
+def load_converted(module: nn.Module, state_dict: dict) -> nn.Module:
+    """Load a converted state dict. Only the S-space attention convs'
+    unused ``conv.modulation`` parameters may be missing; anything else
+    missing or unexpected raises."""
+    missing, unexpected = module.load_state_dict(state_dict, strict=False)
+    bad = [k for k in missing if ".conv.modulation." not in k]
+    if bad or unexpected:
+        raise KeyError(f"missing {bad}, unexpected {list(unexpected)}")
+    return module

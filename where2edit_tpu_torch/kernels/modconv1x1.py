@@ -1,0 +1,86 @@
+"""K3: modulated 1x1 conv with an optional fused epilogue, one kernel.
+
+Replaces the TPU kernel ``tools/pallas_bench.py::modulated_conv1x1`` (body
+``_kernel``). Source: ``csrc/modconv1x1.cu``. Bound on the H100: bytes
+(Cout <= 32 on the path, so each input value feeds at most 32 multiply-adds);
+the kernel folds style·weight into shared memory once per block and streams
+the pixels through it once, applying demod, noise, bias, the activation and
+the residual before the single store (see the source's header).
+
+``modconv1x1`` dispatches on the device of ``x``: a CPU tensor takes the
+plain PyTorch version, a CUDA tensor launches the kernel (or raises).
+``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from where2edit_tpu_torch.kernels.common import (
+    check_cuda_tensor,
+    check_launch,
+    load,
+    plain_epilogue,
+    ptr,
+)
+
+launches = 0
+MAX_COUT = 32
+
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
+    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+
+
+def modconv1x1_plain(x, style, w, demod=None, noise=None, noise_weight=None,
+                     bias=None, act=False, residual=None):
+    """x (B,P,Cin); style (B,Cin) (the equalised-lr scale folded in);
+    w (Cin,Cout); demod (B,Cout); noise (B or 1,P) with noise_weight (1,);
+    bias (Cout,); residual (B,P,Cout). Returns (B,P,Cout)."""
+    y = torch.einsum("bpi,bi,io->bpo", x, style, w)
+    if demod is not None:
+        y = y * demod[:, None, :]
+    return plain_epilogue(y, noise, noise_weight, bias, act, residual)
+
+
+def modconv1x1(x, style, w, demod=None, noise=None, noise_weight=None,
+               bias=None, act=False, residual=None):
+    """Same contract as ``modconv1x1_plain``; on CUDA, Cout <= 32."""
+    if x.device.type == "cpu":
+        return modconv1x1_plain(x, style, w, demod, noise, noise_weight, bias,
+                                act, residual)
+    if x.device.type != "cuda":
+        raise ValueError(f"modconv1x1: unsupported device {x.device}")
+    b, p, cin = x.shape
+    cout = w.shape[1]
+    if cout > MAX_COUT:
+        raise ValueError(f"modconv1x1 supports Cout <= {MAX_COUT}, got {cout}")
+    dev = x.device
+    check_cuda_tensor("x", x, (b, p, cin), dev)
+    check_cuda_tensor("style", style, (b, cin), dev)
+    check_cuda_tensor("w", w, (cin, cout), dev)
+    if demod is not None:
+        check_cuda_tensor("demod", demod, (b, cout), dev)
+    noise_bstride = 0
+    if noise is not None:
+        nb = noise.shape[0]
+        if nb not in (1, b):
+            raise ValueError(f"noise batch {nb} does not broadcast to {b}")
+        check_cuda_tensor("noise", noise, (nb, p), dev)
+        check_cuda_tensor("noise_weight", noise_weight, (1,), dev)
+        noise_bstride = 0 if nb == 1 else p
+    if bias is not None:
+        check_cuda_tensor("bias", bias, (cout,), dev)
+    if residual is not None:
+        check_cuda_tensor("residual", residual, (b, p, cout), dev)
+    out = torch.empty((b, p, cout), device=dev, dtype=torch.float32)
+    fn = load("modconv1x1", "w2e_modconv1x1", _ARGTYPES)
+    rc = fn(ptr(x), ptr(style), ptr(w), ptr(demod), ptr(noise), noise_bstride,
+            ptr(noise_weight) if noise is not None else None, ptr(bias),
+            ptr(residual), ptr(out), b, p, cin, cout, int(act),
+            torch.cuda.current_stream(dev).cuda_stream)
+    check_launch("modconv1x1", rc)
+    global launches
+    launches += 1
+    return out
