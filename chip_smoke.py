@@ -13,25 +13,47 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    nvcc for sm_90a (in parallel) and prints the build seconds and ptxas'
    register / shared-memory report.
 3. kernels — every shape the 1024² edit path gives K1 (``modconv3x3``) and
-   K3 (``modconv1x1``) at batch 1: the kernel against its plain PyTorch
+   K3 (``modconv1x1``) at batch 1, and every shape the 1024² discriminator
+   gives K2 (``conv3x3``) at batch 8: the kernel against its plain PyTorch
    version on the same inputs (fp32, max |Δ| / max |plain| <= 1e-4), the
    kernel's, the plain version's and a library call's time (CUDA events
    around eager calls back to back), the kernel's device time alone (calls
    replayed from a CUDA graph), and the bound: max(bytes / 3.35 TB/s,
    FLOP / 67 TFLOP/s fp32).
-4. slice   — the edit path at full width (1024², 18 W+ rows, 26 taps,
+4. backward — K1, K2 and K3 at every shape of the 1024² training path:
+   the forward as the trainer runs it (K1 with per-sample noise, bias and
+   the activation; K2 with bias and the activation; K3 as ToRGB with bias
+   and skip), at batch 8 and, for K1 and K3, at the path-length batch of 4,
+   against the plain version (``KERNEL_REL_TOL``); then, at batch 8, every
+   input gradient of the autograd Function against autograd through the
+   plain version (``BACKWARD_REL_TOL``).
+5. slice   — the edit path at full width (1024², 18 W+ rows, 26 taps,
    seeded random weights): one seeded face, three edits and one 2-prompt
    sweep through ``EditSession``, with the launch counters set to 0 just
    before and read just after (K1 +9 and K3 +9 per capture, K1 +9 and
    K3 +28 per edit); then the p50 edit latency and its stage split.
-5. profile — phase 4's session runs 5 more edits under ``torch.profiler``:
+6. profile — phase 5's session runs 5 more edits under ``torch.profiler``:
    wall and device-busy ms per edit (the profiler's own cost is inside that
    wall time), the device's idle share, kernel launches per edit, device
    busy time inside each stage, device time by kernel category and by
    kernel.
-6. whole   — the same seeded session at 256² on the card (kernels) and on
+7. whole   — the same seeded session at 256² on the card (kernels) and on
    the CPU (plain versions), from the same W+ and prompts.
-7. the ``kernels`` summary line, then the last line
+8. train   — adversarial training at full width through
+   ``cli/train_stylegan.main``: 1024², channel_multiplier 2, batch 8, 5
+   iterations from seed 0 (iteration 0 runs R1 and path length, iteration
+   4 path length again), the launch counters set to 0 just before; K1, K2
+   and K3 launches per program (d, r1, g, path) against the counts the
+   architecture gives (``train_launches``); finite losses, every parameter
+   of G and D moved, every generator parameter with a non-zero gradient
+   after each G step; ms per program, images/s and peak memory.
+9. train_profile — one more iteration of that trainer, at a step that runs
+   every program, under ``torch.profiler``: device busy, the idle share,
+   device time by kernel category and by kernel.
+10. train_whole — one training iteration at 64² on the card and on the CPU
+   from the same weights and draws, each program from the same state: the
+   losses and every parameter's gradient (``TRAIN_*_TOL``).
+11. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -46,22 +68,27 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from where2edit_tpu_torch.cli import train_stylegan
 from where2edit_tpu_torch.demo.app import build_session
 from where2edit_tpu_torch.editing.attention_mappers import (
     attention_tables,
     tap_resolution,
 )
 from where2edit_tpu_torch.kernels import common
+from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.stylegan2 import channel_table
+from where2edit_tpu_torch.train.gan_trainer import Draws, GANTrainConfig, GANTrainer
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
@@ -74,6 +101,30 @@ KERNEL_REL_TOL = 1e-4
 # sigmoid pooled over clusters, 1e-4 absolute.
 WHOLE_IMAGE_REL_TOL = 1e-3
 WHOLE_MAP_ABS_TOL = 1e-4
+# Backward, kernel Function against autograd through the plain version, per
+# input gradient, max |Δ| / max |plain|: fp32 both sides, but the weight,
+# style and demod gradients are sums over B·H·W (up to 8.4M) products taken
+# in another order (a per-sample weight gradient contracted afterwards
+# against cuDNN's batched one), with cancellation. The checks run without
+# the activation: where a pre-activation rounds to opposite signs in the two
+# forwards, lrelu' takes the other slope there, an O(1) difference at that
+# element that no elementwise bar can hold (the activation's factor is held
+# by gradcheck on the CPU, tests/test_torch_autograd.py).
+BACKWARD_REL_TOL = 1e-3
+# One training iteration, card against CPU at 64², each program started
+# from the same parameters: the losses within 1e-3 relative; the gradient
+# of every parameter tensor within 5e-2 in relative L2 norm and the whole
+# model's within 1e-3. fp32 reductions run in another order, an element
+# whose pre-activation is within rounding of 0 takes the other leaky-ReLU
+# slope, and a noise gain's gradient is one scalar summed over every pixel
+# of the batch with heavy cancellation; a wrong formula moves a gradient by
+# O(1).
+TRAIN_LOSS_REL_TOL = 1e-3
+TRAIN_PARAM_GRAD_TOL = 5e-2
+TRAIN_MODEL_GRAD_TOL = 1e-3
+TRAIN_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier",
+              "2", "--batch", "8", "--iter", "5", "--seed", "0",
+              "--save_every", "0"]
 
 _out_file = None
 
@@ -205,13 +256,21 @@ def k3_shapes():
     return shapes
 
 
+def k2_shapes():
+    """(res, Cin, Cout) of the 1024² discriminator's stride-1 3x3 convs: each
+    ResBlock's conv1, then final_conv (512 + the minibatch-stddev channel)."""
+    ch = channel_table(2)
+    return ([(r, ch[r], ch[r]) for r in (1024, 512, 256, 128, 64, 32, 16, 8)]
+            + [(4, ch[4] + 1, ch[4])])
+
+
 def phase_kernels() -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
     totals = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
                   "bound_ms": 0.0,
                   "bytes_s": 0.0, "ops_s": 0.0, "max_abs_err": 0.0,
-                  "max_rel_err": 0.0} for k in ("modconv3x3", "modconv1x1")}
+                  "max_rel_err": 0.0} for k in ("modconv3x3", "conv3x3", "modconv1x1")}
 
     def add(name, rec):
         tot = totals[name]
@@ -299,11 +358,140 @@ def phase_kernels() -> dict:
                                              residual, got) if t is not None)
         rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * p * cin * cout)
         add("modconv1x1", rec)
+
+    batch = 8
+    for res, cin, cout in k2_shapes():
+        x, w, bias = randn(batch, res, res, cin), randn(3, 3, cin, cout), randn(cout)
+        scale = 1.0 / math.sqrt(cin * 9)
+        args = (x, w, scale, bias, True)
+        got = k2.conv3x3(*args)
+        want = k2.conv3x3_plain(*args)
+        torch.cuda.synchronize()
+        abs_err, rel = rel_err(got, want)
+        check(rel <= KERNEL_REL_TOL, f"conv3x3 {res}² {cin}->{cout}: rel {rel}")
+        # library yardstick: one cuDNN conv (weights pre-scaled), then the epilogue
+        w_lib = (w.permute(3, 2, 0, 1) * scale).contiguous(
+            memory_format=torch.channels_last)
+        x_lib = x.permute(0, 3, 1, 2)
+
+        def library():
+            y = F.conv2d(x_lib, w_lib, bias, padding=1)
+            return F.leaky_relu_(y, 0.2).mul_(math.sqrt(2.0))
+
+        rec = {"shape": f"{res}x{res} {cin}->{cout} batch {batch}",
+               "max_abs_err": abs_err, "max_rel_err": rel,
+               "ms": time_ms(lambda: k2.conv3x3(*args)),
+               "device_ms": graph_ms(lambda: k2.conv3x3(*args)),
+               "plain_ms": time_ms(lambda: k2.conv3x3_plain(*args)),
+               "library_ms": time_ms(library)}
+        nbytes = 4 * (x.numel() + w.numel() + bias.numel() + got.numel())
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes, 2 * batch * res * res * cin * cout * 9)
+        add("conv3x3", rec)
+        del x, w, got, want, w_lib
     return totals
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the 1024² edit path through the kernels
+# phase 4: the kernels' backward against autograd through the plain versions
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs: dict, dy: torch.Tensor) -> dict:
+    """{name: d(Σ fn(**inputs)·dy)/d input} for the inputs that are tensors."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in inputs.items() if isinstance(v, torch.Tensor)}
+    out = fn(**{**inputs, **leaves})
+    got = torch.autograd.grad(out, list(leaves.values()), dy)
+    return dict(zip(leaves, got))
+
+
+def phase_backward() -> tuple:
+    """K1, K2 and K3 at every shape of the 1024² training path. Forward, as
+    the trainer runs each (K1 as StyledConv: demod, noise of shape (B,H,W),
+    bias, the activation; K2 as ConvLayer: bias, the activation; K3 as
+    ToRGB: bias and the upsampled skip), at batch 8 and, for the generator's
+    K1 and K3, at the path-length batch of 4: the kernel against the plain
+    version at ``KERNEL_REL_TOL``. Backward at batch 8: every input gradient
+    of the kernel's Function against autograd through the plain version.
+    Returns ({kernel: worst forward rel error}, {kernel: worst backward rel
+    error})."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(1)
+    batch, path_batch = 8, 4
+    worst_fwd = {"modconv3x3": 0.0, "conv3x3": 0.0, "modconv1x1": 0.0}
+    worst = dict(worst_fwd)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def forward(name, shape, kernel_fn, plain_fn, inputs):
+        before = counts()
+        with torch.no_grad():
+            got = kernel_fn(**inputs)
+            launched = tuple(a - b for a, b in zip(counts(), before))
+            want = plain_fn(**inputs)
+        torch.cuda.synchronize()
+        one = tuple(int(k == name) for k in ("modconv3x3", "conv3x3", "modconv1x1"))
+        check(launched == one, f"{name} forward {shape}: launches {launched}")
+        err = rel_err(got, want)[1]
+        worst_fwd[name] = max(worst_fwd[name], err)
+        check(err <= KERNEL_REL_TOL, f"{name} forward {shape}: rel {err}")
+        return err
+
+    def compare(name, shape, kernel_fn, plain_fn, make, train_kw, batches):
+        """``make(b)`` gives the inputs at batch b; ``train_kw`` what the
+        trainer's forward adds to them (the activation)."""
+        fwd = {f"batch {b}": forward(name, shape, kernel_fn, plain_fn,
+                                     {**make(b), **train_kw}) for b in batches}
+        inputs = make(batch)
+        x = inputs["x"]
+        dy = randn(*x.shape[:-1], inputs["w"].shape[-1])
+        got = _grads(kernel_fn, inputs, dy)
+        want = _grads(plain_fn, inputs, dy)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(got[k], want[k])[1] for k in got}
+        worst[name] = max(worst[name], *errs.values())
+        emit({"phase": "backward", "kernel": name, "shape": shape,
+              "forward_max_rel_err": fwd, "forward_tol": KERNEL_REL_TOL,
+              "max_rel_err": errs, "tol": BACKWARD_REL_TOL})
+        bad = {k: e for k, e in errs.items() if not e <= BACKWARD_REL_TOL}
+        check(not bad, f"{name} backward {shape}: {bad}")
+
+    ch = channel_table(2)
+    for res, cin, cout in k1_shapes():
+        scale = 1.0 / math.sqrt(cin * 9)
+
+        def k1_inputs(b, res=res, cin=cin, cout=cout, scale=scale):
+            return {"x": randn(b, res, res, cin), "style": scale * randn(b, cin),
+                    "w": randn(3, 3, cin, cout), "demod": randn(b, cout).abs() + 0.5,
+                    "noise": randn(b, res, res), "noise_weight": randn(1),
+                    "bias": randn(cout), "act": False}
+
+        compare("modconv3x3", f"{res}x{res} {cin}->{cout}", k1.modconv3x3,
+                k1.modconv3x3_plain, k1_inputs, {"act": True}, (batch, path_batch))
+    for res, cin, cout in k2_shapes():
+        def k2_inputs(b, res=res, cin=cin, cout=cout):
+            return {"x": randn(b, res, res, cin), "w": randn(3, 3, cin, cout),
+                    "scale": 1.0 / math.sqrt(cin * 9), "bias": randn(cout),
+                    "act": False}
+
+        compare("conv3x3", f"{res}x{res} {cin}->{cout}", k2.conv3x3,
+                k2.conv3x3_plain, k2_inputs, {"act": True}, (batch,))
+    for res in (4, 8, 16, 32, 64, 128, 256, 512, 1024):
+        p, cin = res * res, ch[res]
+
+        def k3_inputs(b, p=p, cin=cin, res=res):  # the 4² ToRGB has no skip
+            return {"x": randn(b, p, cin), "style": randn(b, cin) / math.sqrt(cin),
+                    "w": randn(cin, 3), "bias": randn(3),
+                    "residual": randn(b, p, 3) if res > 4 else None}
+
+        compare("modconv1x1", f"to_rgb_{res} {res}x{res} {cin}->3", k3.modconv1x1,
+                k3.modconv1x1_plain, k3_inputs, {}, (batch, path_batch))
+    return worst_fwd, worst
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the 1024² edit path through the kernels
 # ---------------------------------------------------------------------------
 
 PROMPTS = [  # (prompt, attention prompt, strength, threshold)
@@ -416,16 +604,18 @@ def phase_slice() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: where the time of an edit goes
+# phase 6: where the time of an edit goes
 # ---------------------------------------------------------------------------
 
 # kernel-name substrings -> category, first match wins
 CATEGORIES = (
     ("K1 modconv3x3", ("modconv3x3",)),
+    ("K2 conv3x3", ("conv3x3::",)),
     ("K3 modconv1x1", ("modconv1x1",)),
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
-    ("cuDNN transposed conv (up-conv)", ("dgrad",)),
-    ("cuDNN other", ("cudnn",)),
+    ("cuDNN weight gradients", ("wgrad",)),
+    ("cuDNN transposed conv (up-conv) and input gradients", ("dgrad",)),
+    ("cuDNN other", ("cudnn", "fprop", "implicit_convolve")),
     ("GEMM / GEMV", ("gemm", "gemv")),
     ("elementwise / reduce / copy", ("elementwise", "reduce", "copy", "cat",
                                      "index", "layer_norm", "softmax")),
@@ -442,27 +632,35 @@ def _union_us(intervals) -> float:
     return total
 
 
-def phase_profile(session, card: str, edits: int = 5) -> None:
+def device_profile(run, spans: tuple, reps: int, count_ops: tuple = ()) -> dict:
+    """``reps`` calls of ``run(record_function)`` under ``torch.profiler``,
+    per call: wall and device-busy ms, the idle share, kernel launches,
+    device busy inside each ``record_function`` span named in ``spans``,
+    device time by kernel category and by kernel, and how often each host
+    op or autograd node named in ``count_ops`` ran."""
     from torch.profiler import ProfilerActivity, profile, record_function  # noqa: PLC0415
 
-    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(edits):
-            staged_edit(session, toks, att, record_function)
+        for _ in range(reps):
+            run(record_function)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    spans = [e for e in cuda if e.name in STAGES]
-    kernels = [e for e in cuda if e.name not in STAGES
+    op_counts = dict.fromkeys(count_ops, 0)
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CPU and e.name in op_counts:
+            op_counts[e.name] += 1
+    marks = [e for e in cuda if e.name in spans]
+    kernels = [e for e in cuda if e.name not in spans
                and not getattr(e, "is_user_annotation", False)]
     intervals = [(e.time_range.start, e.time_range.end) for e in kernels]
     busy_us = _union_us(intervals)
-    stage_busy = dict.fromkeys(STAGES, 0.0)
-    for span in spans:
+    span_busy = dict.fromkeys(spans, 0.0)
+    for span in marks:
         lo, hi = span.time_range.start, span.time_range.end
-        stage_busy[span.name] += _union_us(
+        span_busy[span.name] += _union_us(
             (max(s, lo), min(e, hi)) for s, e in intervals if s < hi and e > lo)
     by_name, by_cat = defaultdict(lambda: [0.0, 0]), defaultdict(lambda: [0.0, 0])
     for e in kernels:
@@ -472,23 +670,35 @@ def phase_profile(session, card: str, edits: int = 5) -> None:
             rec[0] += e.time_range.end - e.time_range.start
             rec[1] += 1
 
-    def per_edit(table, n=None):
+    def per_call(table, n=None):
         rows = sorted(table.items(), key=lambda kv: -kv[1][0])[:n]
-        return [{"name": k[:90], "ms": v[0] / 1e3 / edits, "launches": v[1] / edits}
+        return [{"name": k[:90], "ms": v[0] / 1e3 / reps, "launches": v[1] / reps}
                 for k, v in rows]
 
+    return {"wall_ms": wall_us / 1e3 / reps, "device_busy_ms": busy_us / 1e3 / reps,
+            "device_idle_share": 1.0 - busy_us / wall_us,
+            "kernel_launches": len(kernels) / reps,
+            "span_device_busy_ms": {k: v / 1e3 / reps for k, v in span_busy.items()},
+            "categories": per_call(by_cat), "top_kernels": per_call(by_name, 25),
+            **({"op_counts": {k: v / reps for k, v in op_counts.items()}}
+               if count_ops else {})}
+
+
+def phase_profile(session, card: str, edits: int = 5) -> None:
+    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
+    rec = device_profile(lambda span: staged_edit(session, toks, att, span), STAGES,
+                         edits)
     emit({"phase": "profile", "card": card, "size": SIZE, "batch": 1, "edits": edits,
-          "wall_ms_per_edit": wall_us / 1e3 / edits,
-          "device_busy_ms_per_edit": busy_us / 1e3 / edits,
-          "device_idle_share": 1.0 - busy_us / wall_us,
-          "kernel_launches_per_edit": len(kernels) / edits,
-          "stage_device_busy_ms_per_edit": {k: v / 1e3 / edits
-                                            for k, v in stage_busy.items()},
-          "categories": per_edit(by_cat), "top_kernels": per_edit(by_name, 25)})
+          "wall_ms_per_edit": rec["wall_ms"],
+          "device_busy_ms_per_edit": rec["device_busy_ms"],
+          "device_idle_share": rec["device_idle_share"],
+          "kernel_launches_per_edit": rec["kernel_launches"],
+          "stage_device_busy_ms_per_edit": rec["span_device_busy_ms"],
+          "categories": rec["categories"], "top_kernels": rec["top_kernels"]})
 
 
 # ---------------------------------------------------------------------------
-# phase 6: whole path, card against CPU at 256²
+# phase 7: whole path, card against CPU at 256²
 # ---------------------------------------------------------------------------
 
 def phase_whole() -> None:
@@ -526,6 +736,222 @@ def phase_whole() -> None:
     check(map_err <= WHOLE_MAP_ABS_TOL, f"256² map card vs CPU: {map_err}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: adversarial training at full width through the CLI
+# ---------------------------------------------------------------------------
+
+PROGRAMS = ("d", "r1", "g", "path")
+
+
+def train_launches(n_oct: int) -> dict:
+    """{program: ((K1, K2, K3) forward, (K1, K2, K3) backward)} launches of
+    one training program at a size with ``n_oct`` octaves above 4²: L =
+    n_oct + 1 layers per kernel (the generator's conv1 and one 3x3 conv per
+    octave for K1, its ToRGBs for K3; each ResBlock's conv1 and final_conv
+    for K2). A Function launches its kernel once forward and once for each
+    backward through it that needs its input gradient (the kernel itself);
+    weight, style and demod gradients are plain.
+
+    d: the fake batch (G forward, no grad), then D forward and backward on
+    the real and on the fake batch. r1: D forward, the input gradient
+    (create_graph), then the backward of that: through each of the L input
+    gradients, and through the n_oct forward nodes ahead of the minibatch
+    stddev, whose second derivative reaches the activations. g: G forward and
+    backward, D forward and backward to the fake images (D's weights frozen).
+    path: G forward, the W+ gradient (create_graph), then the backward of
+    that: through the L input gradients but conv1's (it points at the
+    constant input, not at W+), and through the L forward nodes (the style
+    gradients read each layer's input)."""
+    lay = n_oct + 1
+    return {"d": ((lay, 2 * lay, lay), (0, 2 * lay, 0)),
+            "r1": ((0, lay, 0), (0, 2 * lay + n_oct, 0)),
+            "g": ((lay, lay, lay), (lay, lay, 0)),
+            "path": ((lay, 0, lay), (3 * lay - 1, 0, 0))}
+
+
+def total(a: tuple, b: tuple) -> tuple:
+    return tuple(x + y for x, y in zip(a, b))
+
+
+def counts() -> tuple:
+    return k1.launches, k2.launches, k3.launches
+
+
+class TrainProbe:
+    """The ``span`` of ``cli/train_stylegan.main``: fences each program with
+    ``torch.cuda.synchronize``, times it, reads the launch counters around
+    it, and checks after each G step that every generator parameter has a
+    non-zero gradient; snapshots G and D before the first program."""
+
+    def __init__(self):
+        self.records = []          # (step, program, ms, (K1, K2, K3))
+        self.losses = []           # per iteration {name: float}
+        self.start = None
+
+    @contextlib.contextmanager
+    def __call__(self, program, trainer):
+        if self.start is None:
+            self.start = {m: [p.detach().clone() for p in getattr(trainer, m).parameters()]
+                          for m in ("g", "d")}
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = counts()
+        self.records.append((trainer.global_step, program, ms,
+                             tuple(a - b for a, b in zip(after, before))))
+        if program == "g":
+            zero = [n for n, p in trainer.g.named_parameters()
+                    if p.grad is None or not bool(p.grad.abs().max() > 0)]
+            check(not zero, f"G step {trainer.global_step}: no gradient for {zero}")
+        if program == "ema":
+            m = {k: float(v) for k, v in trainer.metrics.items()}
+            check(all(math.isfinite(v) for v in m.values()),
+                  f"iteration {trainer.global_step}: losses {m}")
+            self.losses.append(m)
+
+
+def phase_train(card: str) -> tuple:
+    """Returns ({kernel: launches}, {kernel: launches inside backward
+    passes}) of the training run."""
+    probe = TrainProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k3.launches = 0
+    # --- the main path: 5 iterations through the CLI ---
+    with tempfile.TemporaryDirectory() as results:
+        trainer = train_stylegan.main([*TRAIN_ARGS, "--results_dir", results],
+                                      span=probe)
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    peak = torch.cuda.max_memory_allocated()
+    for m in ("g", "d"):
+        still = [n for (n, p), p0 in zip(getattr(trainer, m).named_parameters(),
+                                         probe.start[m]) if torch.equal(p, p0)]
+        check(not still, f"{m} parameters that did not move: {still}")
+    expect = train_launches(trainer.g.log_size - 2)
+    none = ((0, 0, 0), (0, 0, 0))
+    backward = (0, 0, 0)
+    for step, program, _, got in probe.records:
+        fwd, bwd = expect.get(program, none)
+        check(got == total(fwd, bwd), f"iteration {step} {program}: launches "
+                                      f"(K1, K2, K3) {got}, expected {fwd} + {bwd}")
+        backward = total(backward, bwd)
+    ms = defaultdict(list)
+    iteration_ms = defaultdict(float)
+    for step, program, t, _ in probe.records:
+        ms[program].append(t)
+        iteration_ms[step] += t
+    n_iter, batch = len(iteration_ms), trainer.cfg.batch_size
+    plain_iters = [t for step, t in iteration_ms.items()
+                   if step % trainer.cfg.g_reg_every and step % trainer.cfg.d_reg_every]
+    emit({"phase": "train", "card": card, "size": SIZE, "batch": batch,
+          "iterations": n_iter, "launches": launches,
+          "launches_per_program": {p: total(*expect[p]) for p in PROGRAMS},
+          "backward_launches_per_program": {p: expect[p][1] for p in PROGRAMS},
+          "ms_per_program": {p: v for p, v in ms.items()},
+          "iteration_ms": [iteration_ms[s] for s in sorted(iteration_ms)],
+          "images_per_s": batch * n_iter / (sum(iteration_ms.values()) / 1e3),
+          "images_per_s_without_regularizers":
+              batch * len(plain_iters) / (sum(plain_iters) / 1e3),
+          "losses": probe.losses, "peak_mem_gib": peak / 2 ** 30})
+    return launches, dict(zip(launches, backward)), trainer
+
+
+def phase_train_profile(trainer, card: str) -> None:
+    """One more iteration of phase 8's trainer under ``torch.profiler``, at a
+    step that runs every program (d, r1, g, path, ema). No per-program
+    spans: backward kernels are launched from autograd's own thread, which
+    a ``record_function`` span on the caller's thread does not cover (phase
+    8's fenced ms per program is the split by program)."""
+    g = torch.Generator("cuda").manual_seed(3)
+    real = torch.rand(trainer.cfg.batch_size, SIZE, SIZE, 3, generator=g,
+                      device="cuda") * 2 - 1
+    trainer.global_step = 16 * trainer.cfg.g_reg_every * trainer.cfg.d_reg_every
+    # PyTorch's own convolution backward and double backward (the latter ran
+    # depthwise blurs one channel at a time) against ops/conv.py's Functions
+    rec = device_profile(lambda span: trainer.step(real), (), 1, count_ops=(
+        "ConvolutionBackward0", "ConvolutionBackwardBackward0",
+        "_Conv2dBackward", "_ConvTranspose2dBackward"))
+    emit({"phase": "train_profile", "card": card, "size": SIZE,
+          "batch": trainer.cfg.batch_size,
+          "losses": {k: float(v) for k, v in trainer.metrics.items()}, **rec})
+
+
+# ---------------------------------------------------------------------------
+# phase 10: one training iteration, card against CPU at 64²
+# ---------------------------------------------------------------------------
+
+def phase_train_whole() -> None:
+    size, batch = 64, 4
+    cfg = GANTrainConfig(size=size, batch_size=batch, channel_multiplier=2)
+    cpu, gpu = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device="cuda")
+    real = torch.from_numpy(np.random.default_rng(0).uniform(
+        -1.0, 1.0, (batch, size, size, 3)).astype(np.float32))
+    draws = cpu.draw(batch)
+    path_draws = cpu.draw(cpu.path_batch())
+    pl_noise = torch.randn(cpu.path_batch(), size, size, 3, generator=cpu.rng)
+
+    def to_gpu(d: Draws) -> Draws:
+        return Draws(d.z1.cuda(), d.z2.cuda(), d.inject.cuda(),
+                     [n.cuda() for n in d.noise])
+
+    # non-zero noise gains (they start at 0), so each layer's per-sample
+    # noise reaches the images and the losses
+    g = torch.Generator().manual_seed(1)
+    for name, p in cpu.g.named_parameters():
+        if name.endswith("noise.weight"):
+            p.data.copy_(0.1 * torch.randn(1, generator=g))
+    programs = [
+        ("d", "d", lambda t, dev: t.d_step_with(real.to(dev),
+                                               draws if dev == "cpu" else to_gpu(draws))),
+        ("r1", "d", lambda t, dev: t.r1_step(real.to(dev))),
+        ("g", "g", lambda t, dev: t.g_step_with(draws if dev == "cpu" else to_gpu(draws))),
+        ("path", "g", lambda t, dev: t.path_step_with(
+            path_draws if dev == "cpu" else to_gpu(path_draws), pl_noise.to(dev))[0]),
+    ]
+    n = counts()
+    rec = {"phase": "train_whole", "size": size, "batch": batch,
+           "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
+           "model_grad_tol": TRAIN_MODEL_GRAD_TOL}
+    for program, model, run in programs:
+        # each program from the same state on both sides
+        for m in ("g", "d"):
+            getattr(gpu, m).load_state_dict(getattr(cpu, m).state_dict())
+        gpu.pl_mean = cpu.pl_mean.cuda()
+        loss_c, loss_g = float(run(cpu, "cpu")), float(run(gpu, "cuda"))
+        loss_rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
+        diff2 = ref2 = 0.0
+        worst, worst_name = 0.0, None
+        for (name, pc), pg in zip(getattr(cpu, model).named_parameters(),
+                                  getattr(gpu, model).parameters()):
+            if pc.grad is None and pg.grad is None:  # not in this loss's graph
+                continue
+            check(pc.grad is not None and pg.grad is not None,
+                  f"64² {program} {name}: a gradient on one side only")
+            gc, gg = pc.grad.double(), pg.grad.double().cpu()
+            d2, r2 = float((gg - gc).square().sum()), float(gc.square().sum())
+            diff2, ref2 = diff2 + d2, ref2 + r2
+            e = math.sqrt(d2 / max(r2, 1e-60))
+            if e > worst:
+                worst, worst_name = e, name
+        model_rel = math.sqrt(diff2 / ref2)
+        rec[program] = {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": loss_rel,
+                        "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
+                        "worst_param": worst_name}
+        check(loss_rel <= TRAIN_LOSS_REL_TOL, f"64² {program} loss: rel {loss_rel}")
+        check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² {program} grads: rel {model_rel}")
+        check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {program} {worst_name}: rel {worst}")
+    want = (0, 0, 0)
+    for fwd, bwd in train_launches(int(math.log2(size)) - 2).values():
+        want = total(want, total(fwd, bwd))
+    got = tuple(a - b for a, b in zip(counts(), n))
+    rec["launches"] = got
+    emit(rec)
+    check(got == want, f"64² card programs launched {got}, expected {want}")
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -537,33 +963,58 @@ def main(argv=None) -> None:
         card = phase_device()
         phase_build()
         totals = phase_kernels()
-        launches, session = phase_slice()
+        train_fwd_err, backward_err = phase_backward()
+        edit_launches, session = phase_slice()
         phase_profile(session, card)
         del session
         phase_whole()
+        train_launches_run, backward_launches, trainer = phase_train(card)
+        phase_train_profile(trainer, card)
+        del trainer
+        phase_train_whole()
     finally:
         if _out_file is not None:
             _out_file.close()
     sources = {"modconv3x3": ("where2edit_tpu_torch/csrc/modconv3x3.cu",
                               "tools/conv3x3_bench.py:185"),
+               "conv3x3": ("where2edit_tpu_torch/csrc/conv3x3.cu",
+                           "tools/conv3x3_bench.py:92"),
                "modconv1x1": ("where2edit_tpu_torch/csrc/modconv1x1.cu",
                               "tools/pallas_bench.py:56")}
+    backward_checks = {  # what phase 4's backward comparison holds
+        "modconv3x3": "kernel input gradient, plain style/w/demod/noise/bias "
+                      "gradients, against autograd through the plain version",
+        "conv3x3": "kernel input gradient, plain w/bias gradients, against "
+                   "autograd through the plain version",
+        "modconv1x1": "plain backward only (no kernel launch: the input "
+                      "gradient's width is Cin > 32), hand-written formulas "
+                      "against autograd through the plain version"}
     kernels = []
     for name, (src, replaces) in sources.items():
         tot = totals[name]
+        by_path = {"edit": edit_launches.get(name, 0), "train": train_launches_run[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": tot["max_abs_err"],
-            "max_rel_err": tot["max_rel_err"], "ms": tot["ms"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "train_backward_launches": backward_launches[name],
+            "max_abs_err": tot["max_abs_err"],
+            "max_rel_err": tot["max_rel_err"],
+            "train_forward_max_rel_err": train_fwd_err[name],
+            "backward_max_rel_err": backward_err[name],
+            "backward_check": backward_checks[name], "ms": tot["ms"],
             "device_ms": tot["device_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
             "library_ms": tot["library_ms"],
             "note": "ms, device_ms, plain_ms, bound_ms, library_ms: sums over "
-                    "the edit path's shapes at batch 1, one call each; ms, "
-                    "plain_ms and library_ms are eager calls back to back (the "
-                    "host's launch cost included), device_ms is the kernel "
-                    "replayed from a CUDA graph"})
+                    + ("the 1024² discriminator's shapes at batch 8"
+                       if name == "conv3x3" else "the edit path's shapes at batch 1")
+                    + ", one call each; ms, plain_ms and library_ms are eager "
+                    "calls back to back (the host's launch cost included), "
+                    "device_ms is the kernel replayed from a CUDA graph; "
+                    "launches: the edit path's run (phase 5) plus the training "
+                    "run's (phase 8), of which train_backward_launches inside "
+                    "backward passes"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,24 +1,33 @@
-"""K1 and K3 on the card against their plain versions at ragged shapes the
-edit path does not reach (odd spatial sizes, Cout not a multiple of the
-tile, Cin not a multiple of the staged chunk, batch 2 with a broadcast
-noise, every optional epilogue input on and off), and K1 both with and
-without its Cin split across blocks. Skipped (by a fixture) without a CUDA
-device; on the card run it with
+"""K1, K2 and K3 on the card against their plain versions at ragged shapes
+the main paths do not reach (odd spatial sizes, Cout not a multiple of the
+tile, Cin and Cout not multiples of 4 or of the staged chunk, batch 2 with a
+broadcast noise, every optional epilogue input on and off), K1 and K2 both
+with and without their Cin split across blocks, and the backward of the
+three autograd Functions against autograd through the plain versions.
+Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
+card run it with
 
     W2E_TEST_TPU=1 python -m pytest tests/test_torch_cuda_kernels.py -q
 
 (``W2E_TEST_TPU=1`` keeps tests/conftest.py from importing JAX, which the
 card's machine does not have). fp32, TF32 off; bar 1e-5 relative to the
-output's largest magnitude.
+output's largest magnitude, 1e-4 for the gradients (sums over every pixel
+of the batch in another order); the backward cases run without the
+activation, whose kink makes an elementwise bar ill-posed where the two
+forwards round a pre-activation to opposite signs.
 """
 
 import pytest
 import torch
 
+from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 
+pytestmark = pytest.mark.cuda
+
 REL = 1e-5
+GRAD_REL = 1e-4
 
 
 @pytest.fixture
@@ -41,6 +50,7 @@ def _rel(got, want):
     (2, 6, 10, 100, 36, True, "batch", True, True),
     (2, 9, 9, 8, 4, False, None, False, False),
     (1, 3, 40, 20, 128, True, "shared", False, True),
+    (2, 6, 9, 13, 7, True, "batch", True, True),
 ])
 def test_torch_cuda_modconv3x3(dev, b, h, w, cin, cout, demod, noise, bias, act):
     g = torch.Generator(dev).manual_seed(cin + cout)
@@ -83,11 +93,88 @@ def test_torch_cuda_modconv1x1(dev, b, p, cin, cout, demod, noise, bias, act, re
     assert _rel(got, k3.modconv1x1_plain(*args)) <= REL
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,bias,act", [
+    (8, 4, 4, 513, 512, True, True),
+    (2, 4, 4, 512, 513, False, False),
+    (2, 9, 11, 5, 7, True, True),
+    (1, 33, 20, 32, 32, True, False),
+    (2, 16, 16, 64, 64, False, True),
+])
+def test_torch_cuda_conv3x3(dev, b, h, w, cin, cout, bias, act):
+    g = torch.Generator(dev).manual_seed(cin + 2 * cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    n2 = k2.launches
+    args = (r(b, h, w, cin), r(3, 3, cin, cout), 1.0 / (9 * cin) ** 0.5,
+            r(cout) if bias else None, act)
+    got = k2.conv3x3(*args)
+    torch.cuda.synchronize()
+    assert k2.launches == n2 + 1
+    assert _rel(got, k2.conv3x3_plain(*args)) <= REL
+
+
+def _check_grads(fn, plain, tensors: dict, flags: dict, dy):
+    def grads(f):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in tensors.items()}
+        return torch.autograd.grad(f(**leaves, **flags), list(leaves.values()), dy)
+
+    for name, got, want in zip(tensors, grads(fn), grads(plain)):
+        assert _rel(got, want) <= GRAD_REL, name
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 5, 7, 12, 36), (2, 4, 4, 64, 64),
+                                             (2, 6, 9, 13, 7)])
+def test_torch_cuda_modconv3x3_backward(dev, b, h, w, cin, cout):
+    g = torch.Generator(dev).manual_seed(7 * cin + cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    n1 = k1.launches
+    tensors = {"x": r(b, h, w, cin), "style": r(b, cin), "w": r(3, 3, cin, cout),
+               "demod": r(b, cout).abs() + 0.5, "noise": r(1, h, w),
+               "noise_weight": r(1), "bias": r(cout)}
+    _check_grads(k1.modconv3x3, k1.modconv3x3_plain, tensors, {"act": False},
+                 r(b, h, w, cout))
+    assert k1.launches == n1 + 2  # forward, then the input gradient
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 4, 4, 513, 512), (2, 9, 11, 5, 7)])
+def test_torch_cuda_conv3x3_backward(dev, b, h, w, cin, cout):
+    g = torch.Generator(dev).manual_seed(5 * cin + cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    n2 = k2.launches
+    tensors = {"x": r(b, h, w, cin), "w": r(3, 3, cin, cout), "bias": r(cout)}
+    _check_grads(k2.conv3x3, k2.conv3x3_plain, tensors,
+                 {"scale": 1.0 / (9 * cin) ** 0.5, "act": False}, r(b, h, w, cout))
+    assert k2.launches == n2 + 2
+
+
+def test_torch_cuda_modconv1x1_backward(dev):
+    g = torch.Generator(dev).manual_seed(11)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    tensors = {"x": r(2, 77, 40), "style": r(2, 40), "w": r(40, 3),
+               "demod": r(2, 3).abs() + 0.5, "noise": r(2, 77),
+               "noise_weight": r(1), "bias": r(3), "residual": r(2, 77, 3)}
+    _check_grads(k3.modconv1x1, k3.modconv1x1_plain, tensors, {"act": False},
+                 r(2, 77, 3))
+
+
 def test_torch_cuda_wrappers_reject_bad_inputs(dev):
     x = torch.randn(1, 4, 4, 6, device=dev)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        k1.modconv3x3(x, torch.randn(1, 6, device=dev),
+    with pytest.raises(ValueError, match="contiguous"):
+        k1.modconv3x3(x.transpose(1, 2), torch.randn(1, 6, device=dev),
                       torch.randn(3, 3, 6, 8, device=dev))
+    with pytest.raises(ValueError, match="shape"):
+        k2.conv3x3(x, torch.randn(3, 3, 5, 8, device=dev), 1.0)
     with pytest.raises(ValueError, match="contiguous"):
         k3.modconv1x1(torch.randn(1, 8, 16, device=dev).transpose(1, 2),
                       torch.randn(1, 8, device=dev), torch.randn(8, 3, device=dev))

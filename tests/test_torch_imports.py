@@ -22,8 +22,14 @@ for name in names:
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "where2edit_tpu"))
-print(len(names), bad)
+print(len(names), bad, " ".join(names))
 """
+
+NEW_MODULES = {  # adversarial training
+    "where2edit_tpu_torch.kernels.conv3x3", "where2edit_tpu_torch.train",
+    "where2edit_tpu_torch.train.gan_trainer", "where2edit_tpu_torch.train.datasets",
+    "where2edit_tpu_torch.train.checkpoints", "where2edit_tpu_torch.cli.train_stylegan",
+}
 
 
 def test_torch_port_imports_no_jax():
@@ -31,20 +37,23 @@ def test_torch_port_imports_no_jax():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 20
+    count, bad, names = out.stdout.strip().split(" ", 2)
+    assert int(count) >= 26
     assert bad == "[]"
+    assert NEW_MODULES <= set(names.split())
 
 
 def test_torch_entry_points_need_a_card_unless_told():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
     from where2edit_tpu_torch import resolve_device  # noqa: PLC0415
-    from where2edit_tpu_torch.cli import edit  # noqa: PLC0415
+    from where2edit_tpu_torch.cli import edit, train_stylegan  # noqa: PLC0415
     from where2edit_tpu_torch.demo.app import build_session  # noqa: PLC0415
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_session(32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         edit.main(["--text", "grey hair", "--stylegan_size", "32"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_stylegan.main(["--synthetic", "2", "--size", "8", "--iter", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,4 +1,4 @@
-"""K1 and K3: the plain PyTorch versions against the TPU kernels they
+"""K1, K2 and K3: the plain PyTorch versions against the TPU kernels they
 replace, run the way tests/test_tools.py runs them: the tools/ modules
 loaded by path, the Pallas kernels under pltpu.force_tpu_interpret_mode(),
 and against their XLA/jnp references. Also the CPU dispatch of the
@@ -16,6 +16,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
+from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 
@@ -68,6 +69,18 @@ def test_torch_k1_plain_matches_pallas_kernel(k1_inputs):
     close(got, mod.conv3x3_mod_xla(jnp.asarray(x), jnp.asarray(w),
                                    jnp.asarray(bias), jnp.asarray(style),
                                    jnp.asarray(demod)), TOL)
+
+
+def test_torch_k2_plain_matches_pallas_kernel(k1_inputs):
+    x, w, bias, _, _ = k1_inputs
+    mod = _load("conv3x3_bench")
+    with pltpu.force_tpu_interpret_mode():
+        want = mod.conv3x3_fused(jnp.asarray(x), jnp.asarray(w),
+                                 jnp.asarray(bias), th=8)
+    got = k2.conv3x3_plain(t(x), t(w), 1.0, t(bias), True)
+    close(got, want, TOL)
+    close(got, mod.conv3x3_xla(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(bias)), TOL)
 
 
 @pytest.mark.parametrize("with_demod", [True, False])

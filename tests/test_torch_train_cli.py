@@ -1,0 +1,99 @@
+"""The port's adversarial-training entry point on the CPU: the CLI end to
+end (it writes checkpoints) and ``--resume`` continuing one exactly as the
+uninterrupted run did; and the kernel calls per training program, which
+``chip_smoke.py`` holds the card's launch counters to
+(``chip_smoke.train_launches``)."""
+
+import contextlib
+
+import pytest
+import torch
+
+from where2edit_tpu_torch.cli import train_stylegan
+from where2edit_tpu_torch.kernels import conv3x3 as k2
+from where2edit_tpu_torch.kernels import modconv1x1 as k3
+from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+
+ARGS = ["--synthetic", "6", "--size", "16", "--batch", "4", "--device", "cpu",
+        "--save_every", "1"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_threads():
+    """Two intra-op threads: the tier-1 run puts six test processes on the
+    machine's cores, where more threads per process spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def first_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("gan")
+    trainer = train_stylegan.main([*ARGS, "--iter", "2", "--results_dir", str(out / "a")])
+    return out, trainer
+
+
+def test_torch_train_cli_writes_checkpoints(first_run):
+    out, trainer = first_run
+    assert trainer.global_step == 2
+    for step in (1, 2):
+        ckpt = torch.load(out / "a" / f"ckpt_{step:07d}.pt", weights_only=True)
+        assert ckpt["step"] == step and ckpt["opts"]["size"] == 16
+        assert set(ckpt) >= {"g", "d", "g_ema", "g_opt", "d_opt", "pl_mean", "rng"}
+    assert float(ckpt["pl_mean"]) != 0.0  # step 0 ran the path length penalty
+
+
+def test_torch_train_cli_resume_matches_uninterrupted(first_run):
+    out, _ = first_run
+    resumed = train_stylegan.main([*ARGS, "--iter", "2", "--resume",
+                                   str(out / "a" / "ckpt_0000001.pt"),
+                                   "--results_dir", str(out / "b")])
+    assert resumed.global_step == 2
+    want = torch.load(out / "a" / "ckpt_0000002.pt", weights_only=True)
+    got = torch.load(out / "b" / "ckpt_0000002.pt", weights_only=True)
+    for part in ("g", "d", "g_ema"):
+        for name, v in want[part].items():
+            assert torch.equal(got[part][name], v), (part, name)
+    assert torch.equal(got["pl_mean"], want["pl_mean"])
+    assert torch.equal(got["rng"], want["rng"])
+
+
+def test_torch_train_cli_needs_reals():
+    with pytest.raises(SystemExit):
+        train_stylegan.main(["--size", "16", "--device", "cpu"])
+
+
+def test_torch_train_launches_per_program(monkeypatch):
+    """Each Function call runs the plain version once on the CPU, where the
+    card launches its kernel once: counted per program at 16² (2 octaves),
+    every program run (both regularisers at every step), split into calls
+    made in the forward and inside a backward pass."""
+    import chip_smoke  # noqa: PLC0415
+
+    calls = [0] * 6  # (K1, K2, K3) forward, then (K1, K2, K3) backward
+    for i, (mod, name) in enumerate(((k1, "modconv3x3_plain"), (k2, "conv3x3_plain"),
+                                     (k3, "modconv1x1_plain"))):
+        plain = getattr(mod, name)
+
+        def counted(*a, _plain=plain, _i=i, **k):
+            in_backward = torch._C._current_autograd_node() is not None
+            calls[_i + 3 * in_backward] += 1
+            return _plain(*a, **k)
+
+        monkeypatch.setattr(mod, name, counted)
+    tr = GANTrainer(GANTrainConfig(size=16, batch_size=2, channel_multiplier=1,
+                                   d_reg_every=1, g_reg_every=1), device="cpu")
+    got = {}
+
+    @contextlib.contextmanager
+    def span(program, trainer):
+        before = tuple(calls)
+        yield
+        diff = tuple(a - b for a, b in zip(calls, before))
+        got[program] = (diff[:3], diff[3:])
+
+    tr.step(torch.rand(2, 16, 16, 3) * 2 - 1, span)
+    assert got == {**chip_smoke.train_launches(2), "ema": ((0, 0, 0), (0, 0, 0))}

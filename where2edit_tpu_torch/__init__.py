@@ -1,7 +1,7 @@
 """where2edit_tpu_torch: the PyTorch + CUDA port of where2edit_tpu.
 
 The package mirrors the JAX package's layout (``ops/``, ``nn/``,
-``models/``, ``editing/``, ``demo/``, ``cli/``) and adds ``csrc/`` (CUDA C++
+``models/``, ``editing/``, ``demo/``, ``train/``, ``cli/``) and adds ``csrc/`` (CUDA C++
 sources for Hopper, ``sm_90a``) and ``kernels/`` (their ctypes-bound
 wrappers, each beside its plain PyTorch version).
 

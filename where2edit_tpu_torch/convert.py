@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from where2edit_tpu_torch.models.stylegan2 import channel_table
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel
 
 
@@ -88,6 +89,44 @@ def generator_state_dict(variables: dict, size: int, n_mlp: int = 8) -> dict:
         key = f"noise_{i}"
         sd[f"noises.{key}"] = (_nchw(noises[key]) if key in noises
                                else torch.zeros(1, 1, r, r))
+    return sd
+
+
+def _conv_layer(p: dict, prefix: str, *, downsample: bool) -> dict:
+    """A ``ConvLayer``: Sequential indexes [Blur,] EqualConv2d
+    [, FusedLeakyReLU]."""
+    idx = 1 if downsample else 0
+    out = {f"{prefix}.{idx}.weight": _t(np.asarray(p["conv"]["weight"])
+                                        .transpose(3, 2, 0, 1))}
+    if downsample:
+        out[f"{prefix}.0.kernel"] = _t(make_kernel([1, 3, 3, 1]))
+    if "bias" in p["conv"]:
+        out[f"{prefix}.{idx}.bias"] = _t(p["conv"]["bias"])
+    if "activate_bias" in p:
+        out[f"{prefix}.{idx + 1}.bias"] = _t(p["activate_bias"])
+    return out
+
+
+def discriminator_state_dict(variables: dict, size: int,
+                             channel_multiplier: int = 2) -> dict:
+    """``{"params"}`` (or the params tree itself) of
+    ``where2edit_tpu.models.Discriminator`` → the port's ``Discriminator``
+    state dict. Raises if the tree's widths are not those of
+    ``channel_multiplier``."""
+    params = variables.get("params", variables)
+    width = np.asarray(params["conv_in"]["conv"]["weight"]).shape[-1]
+    if width != channel_table(channel_multiplier)[size]:
+        raise ValueError(f"conv_in has {width} channels, not those of "
+                         f"channel_multiplier {channel_multiplier} at {size}")
+    sd = _conv_layer(params["conv_in"], "convs.0", downsample=False)
+    for j in range(int(math.log2(size)) - 2):
+        blk, pre = params[f"block_{j}"], f"convs.{j + 1}"
+        sd.update(_conv_layer(blk["conv1"], f"{pre}.conv1", downsample=False))
+        sd.update(_conv_layer(blk["conv2"], f"{pre}.conv2", downsample=True))
+        sd.update(_conv_layer(blk["skip"], f"{pre}.skip", downsample=True))
+    sd.update(_conv_layer(params["final_conv"], "final_conv", downsample=False))
+    sd.update(_equal_linear(params["final_linear1"], "final_linear.0"))
+    sd.update(_equal_linear(params["final_linear2"], "final_linear.1"))
     return sd
 
 

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. At first use it is compiled
 by ``nvcc`` for Hopper (``sm_90a``) into ``where2edit_tpu_torch/_build/``
-as a shared library named after the source's hash, and loaded with ctypes.
+as a shared library named after the hash of the source and the shared
+headers (``csrc/*.cuh``), and loaded with ctypes.
 Several sources build in parallel (one ``nvcc`` each, started together). No
 ``nvcc`` means no kernel: the caller gets an error, never a fallback.
 """
@@ -10,7 +11,9 @@ Several sources build in parallel (one ``nvcc`` each, started together). No
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -24,7 +27,7 @@ from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("modconv3x3", "modconv1x1")
+KERNEL_SOURCES = ("modconv3x3", "conv3x3", "modconv1x1")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -45,7 +48,8 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    src = b"".join(p.read_bytes() for p in
+                   [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -96,6 +100,16 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
     return fn
 
 
+@functools.lru_cache(maxsize=None)
+def split_count(name: str, b: int, h: int, wd: int, cin: int, cout: int,
+                device_index: int) -> int:
+    """How many blocks share each output tile's Cin range in the 3x3 core of
+    ``csrc/<name>.cu`` (its ``w2e_<name>_splits``), per shape and card."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return load(name, f"w2e_{name}_splits", [ctypes.c_int] * 6)(
+        b, h, wd, cin, cout, sms)
+
+
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -130,6 +144,31 @@ def plain_epilogue(y: torch.Tensor, noise: torch.Tensor | None,
     if residual is not None:
         y = y + residual
     return y
+
+
+def lrelu_grad(dy: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """dy · d(lrelu(z, 0.2)·√2)/dz, read from the output y (same sign as z).
+    Linear in dy, so it can be differentiated again."""
+    return torch.where(y >= 0, dy, dy * 0.2) * math.sqrt(2.0)
+
+
+def noise_grads(dz: torch.Tensor, noise: torch.Tensor | None,
+                noise_weight: torch.Tensor | None, need_noise: bool,
+                need_weight: bool):
+    """Gradients of ``noise`` (B or 1, *spatial) and ``noise_weight`` (1,)
+    in ``z = ... + noise_weight·noise[..., None]`` (channels last), given
+    dz; None where not needed."""
+    if noise is None or not (need_noise or need_weight):
+        return None, None
+    dsum = dz.sum(-1)
+    dn = dnw = None
+    if need_noise:
+        dn = noise_weight * dsum
+        if noise.shape[0] != dn.shape[0]:
+            dn = dn.sum(0, keepdim=True)
+    if need_weight:
+        dnw = (dsum * noise).sum().reshape(1)
+    return dn, dnw
 
 
 def check_launch(name: str, rc: int) -> None:

@@ -7,9 +7,14 @@ the kernel folds style·weight into shared memory once per block and streams
 the pixels through it once, applying demod, noise, bias, the activation and
 the residual before the single store (see the source's header).
 
-``modconv1x1`` dispatches on the device of ``x``: a CPU tensor takes the
-plain PyTorch version, a CUDA tensor launches the kernel (or raises).
-``launches`` counts kernel launches.
+``modconv1x1`` is a ``torch.autograd.Function`` whose forward dispatches on
+the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
+tensor launches the kernel (or raises). Its backward is plain PyTorch in
+differentiable calls, so it can itself be differentiated: the input
+gradient would be K3 with its operands swapped, but its output width is the
+layer's Cin (up to 512), beyond the kernel's Cout <= 32; the weight, style
+and demod gradients come from one per-sample product
+``P[b] = x[b]ᵀ dz[b]`` as in K1. ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from where2edit_tpu_torch.kernels.common import (
     check_cuda_tensor,
     check_launch,
     load,
+    lrelu_grad,
+    noise_grads,
     plain_epilogue,
     ptr,
 )
@@ -44,14 +51,8 @@ def modconv1x1_plain(x, style, w, demod=None, noise=None, noise_weight=None,
     return plain_epilogue(y, noise, noise_weight, bias, act, residual)
 
 
-def modconv1x1(x, style, w, demod=None, noise=None, noise_weight=None,
-               bias=None, act=False, residual=None):
-    """Same contract as ``modconv1x1_plain``; on CUDA, Cout <= 32."""
-    if x.device.type == "cpu":
-        return modconv1x1_plain(x, style, w, demod, noise, noise_weight, bias,
-                                act, residual)
-    if x.device.type != "cuda":
-        raise ValueError(f"modconv1x1: unsupported device {x.device}")
+def _launch(x, style, w, demod, noise, noise_weight, bias, act, residual):
+    """The kernel on CUDA tensors, same contract as ``modconv1x1_plain``."""
     b, p, cin = x.shape
     cout = w.shape[1]
     if cout > MAX_COUT:
@@ -84,3 +85,55 @@ def modconv1x1(x, style, w, demod=None, noise=None, noise_weight=None,
     global launches
     launches += 1
     return out
+
+
+class _ModConv1x1(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, style, w, demod, noise, noise_weight, bias, act, residual):
+        args = (x, style, w, demod, noise, noise_weight, bias, act, residual)
+        if x.device.type == "cpu":
+            y = modconv1x1_plain(*args)
+        elif x.device.type == "cuda":
+            y = _launch(*args)
+        else:
+            raise ValueError(f"modconv1x1: unsupported device {x.device}")
+        ctx.act = act
+        ctx.save_for_backward(x, style, w, demod, noise, noise_weight,
+                              y if act else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, style, w, demod, noise, noise_weight, y = ctx.saved_tensors
+        need_x, need_s, need_w, need_d, need_n, need_nw, need_b, _, need_r = \
+            ctx.needs_input_grad
+        dz = lrelu_grad(dy, y) if ctx.act else dy
+        dx = ds = dw = dd = None
+        if need_x:
+            dc = dz if demod is None else dz * demod[:, None, :]
+            dx = (dc @ w.t()) * style[:, None, :]
+        if need_s or need_w or need_d:
+            p = x.transpose(1, 2) @ dz                     # (B, Cin, Cout)
+            ps = p * style[:, :, None]
+            pd = p if demod is None else p * demod[:, None, :]
+            if need_w:
+                dw = (ps if demod is None else ps * demod[:, None, :]).sum(0)
+            if need_s:
+                ds = (pd * w).sum(2)
+            if need_d:
+                dd = (ps * w).sum(1)
+        dn, dnw = noise_grads(dz, noise, noise_weight, need_n, need_nw)
+        db = dz.sum((0, 1)) if need_b else None
+        return dx, ds, dw, dd, dn, dnw, db, None, dy if need_r else None
+
+
+def modconv1x1(x, style, w, demod=None, noise=None, noise_weight=None,
+               bias=None, act=False, residual=None):
+    """Same contract as ``modconv1x1_plain`` (on CUDA, Cout <= 32),
+    differentiable (twice and more) in every tensor argument."""
+    if act and residual is not None:
+        # the activation's gradient reads the output before the residual
+        return modconv1x1(x, style, w, demod, noise, noise_weight, bias,
+                          True) + residual
+    return _ModConv1x1.apply(x, style, w, demod, noise, noise_weight, bias,
+                             act, residual)

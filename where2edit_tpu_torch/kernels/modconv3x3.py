@@ -1,23 +1,37 @@
 """K1: modulated 3x3 conv + demod + noise + bias + lrelu, one kernel.
 
 Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_mod_fused`` (body
-``_kernel_mod``). Source: ``csrc/modconv3x3.cu``. Bound on the H100: fp32
-operations (~19.3 GFLOP per layer from 64² up against at most ~270 MB); the
-kernel stages the style-modulated input tile and the weights in shared
-memory and accumulates a register tile per thread with FMAs, applying the
-whole epilogue before the single store. Where the grid alone would not fill
-the SMs (4² to 32²) it splits Cin across blocks into an fp32 scratch that a
-second pass sums before the epilogue (see the source's header).
+``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on the core it shares with
+K2 (``csrc/conv3x3_core.cuh``). Bound on the H100: fp32 operations (~19.3
+GFLOP per layer from 64² up against at most ~270 MB); the kernel stages the
+style-modulated input tile and the weights in shared memory and accumulates
+a register tile per thread with FMAs, applying the whole epilogue before
+the single store. Where the grid alone would not fill the SMs (4² to 32²) it
+splits Cin across blocks into an fp32 scratch that a second pass sums before
+the epilogue (see the core's header).
 
-``modconv3x3`` dispatches on the device of ``x``: a CPU tensor takes the
-plain PyTorch version, a CUDA tensor launches the kernel (or raises).
-``launches`` counts kernel launches.
+``modconv3x3`` is a ``torch.autograd.Function`` whose forward dispatches on
+the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
+tensor launches the kernel (or raises). Its backward is written in
+differentiable calls, so it can itself be differentiated (R1 and the path
+length penalty take a gradient of a gradient):
+
+- the input gradient is K1 itself, launched through the same Function:
+  ``dx = s ⊙ conv3x3(dz·demod, flip(w)ᵀ)`` is ``modconv3x3`` with style :=
+  demod, demod := s and the spatially flipped weight with Cin and Cout
+  swapped (dz = dy·lrelu'(·), the epilogue dropped);
+- the weight, style and demod gradients are plain PyTorch, all three from
+  one per-sample weight gradient ``P[b] = Σ_pixels x̃[b]ᵀ dz[b]`` (x̃ the
+  zero-padded 3x3 neighbourhoods): ``dw = Σ_b s⊗demod·P``,
+  ``ds = Σ w·demod·P``, ``ddemod = Σ w·s·P``;
+- noise, noise gain and bias gradients are sums of dz.
+
+``launches`` counts kernel launches, forward and backward alike.
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 import torch.nn.functional as F
@@ -25,53 +39,41 @@ import torch.nn.functional as F
 from where2edit_tpu_torch.kernels.common import (
     check_cuda_tensor,
     check_launch,
+    lrelu_grad,
     load,
+    noise_grads,
     plain_epilogue,
     ptr,
+    split_count,
 )
 
 launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-_SPLITS_ARGTYPES = [ctypes.c_int] * 6
-
-
-@functools.lru_cache(maxsize=None)
-def _split_count(b, h, wd, cin, cout, device_index) -> int:
-    """How many blocks share each output tile's Cin range (the source's
-    ``w2e_modconv3x3_splits``), per shape and card."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return load("modconv3x3", "w2e_modconv3x3_splits", _SPLITS_ARGTYPES)(
-        b, h, wd, cin, cout, sms)
 
 
 def modconv3x3_plain(x, style, w, demod=None, noise=None, noise_weight=None,
                      bias=None, act=False):
-    """x (B,H,W,Cin); style (B,Cin) (the equalised-lr scale folded in);
-    w (3,3,Cin,Cout); demod (B,Cout); noise (B or 1,H,W) with noise_weight
-    (1,); bias (Cout,). Returns (B,H,W,Cout)."""
-    xm = (x * style[:, None, None, :]).permute(0, 3, 1, 2)
-    y = F.conv2d(xm, w.permute(3, 2, 0, 1), padding=1).permute(0, 2, 3, 1)
+    """x (B,H,W,Cin); style (B,Cin) (the equalised-lr scale folded in) or
+    None for 1; w (3,3,Cin,Cout); demod (B,Cout); noise (B or 1,H,W) with
+    noise_weight (1,); bias (Cout,). Returns (B,H,W,Cout)."""
+    xm = x if style is None else x * style[:, None, None, :]
+    y = F.conv2d(xm.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1),
+                 padding=1).permute(0, 2, 3, 1)
     if demod is not None:
         y = y * demod[:, None, None, :]
     return plain_epilogue(y, noise, noise_weight, bias, act)
 
 
-def modconv3x3(x, style, w, demod=None, noise=None, noise_weight=None,
-               bias=None, act=False):
-    """Same contract as ``modconv3x3_plain``."""
-    if x.device.type == "cpu":
-        return modconv3x3_plain(x, style, w, demod, noise, noise_weight, bias, act)
-    if x.device.type != "cuda":
-        raise ValueError(f"modconv3x3: unsupported device {x.device}")
+def _launch(x, style, w, demod, noise, noise_weight, bias, act):
+    """The kernel on CUDA tensors, same contract as ``modconv3x3_plain``."""
     b, h, wd, cin = x.shape
     cout = w.shape[3]
-    if cin % 4 or cout % 4:
-        raise ValueError(f"modconv3x3 needs Cin and Cout divisible by 4, got {cin}, {cout}")
     dev = x.device
     check_cuda_tensor("x", x, (b, h, wd, cin), dev)
-    check_cuda_tensor("style", style, (b, cin), dev)
+    if style is not None:
+        check_cuda_tensor("style", style, (b, cin), dev)
     check_cuda_tensor("w", w, (3, 3, cin, cout), dev)
     if demod is not None:
         check_cuda_tensor("demod", demod, (b, cout), dev)
@@ -86,7 +88,7 @@ def modconv3x3(x, style, w, demod=None, noise=None, noise_weight=None,
     if bias is not None:
         check_cuda_tensor("bias", bias, (cout,), dev)
     out = torch.empty((b, h, wd, cout), device=dev, dtype=torch.float32)
-    splits = _split_count(b, h, wd, cin, cout, dev.index)
+    splits = split_count("modconv3x3", b, h, wd, cin, cout, dev.index)
     partial = (torch.empty((splits, b, h, wd, cout), device=dev,
                            dtype=torch.float32) if splits > 1 else None)
     fn = load("modconv3x3", "w2e_modconv3x3", _ARGTYPES)
@@ -98,3 +100,61 @@ def modconv3x3(x, style, w, demod=None, noise=None, noise_weight=None,
     global launches
     launches += 1
     return out
+
+
+def _per_sample_wgrad(x, dz):
+    """P (B,3,3,Cin,Cout): each sample's weight gradient of a stride-1,
+    pad-1 3x3 conv, ``P[b,ky,kx,i,o] = Σ_hw x[b,h+ky-1,w+kx-1,i]·dz[b,h,w,o]``.
+    Plain PyTorch (cuDNN's weight gradient, one sample per call), twice
+    differentiable."""
+    cin, cout = x.shape[3], dz.shape[3]
+    rows = [torch.nn.grad.conv2d_weight(
+        x[i:i + 1].permute(0, 3, 1, 2), (cout, cin, 3, 3),
+        dz[i:i + 1].permute(0, 3, 1, 2), padding=1) for i in range(x.shape[0])]
+    return torch.stack(rows).permute(0, 3, 4, 2, 1)
+
+
+class _ModConv3x3(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, style, w, demod, noise, noise_weight, bias, act):
+        if x.device.type == "cpu":
+            y = modconv3x3_plain(x, style, w, demod, noise, noise_weight, bias, act)
+        elif x.device.type == "cuda":
+            y = _launch(x, style, w, demod, noise, noise_weight, bias, act)
+        else:
+            raise ValueError(f"modconv3x3: unsupported device {x.device}")
+        ctx.act = act
+        ctx.save_for_backward(x, style, w, demod, noise, noise_weight,
+                              y if act else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, style, w, demod, noise, noise_weight, y = ctx.saved_tensors
+        need_x, need_s, need_w, need_d, need_n, need_nw, need_b, _ = \
+            ctx.needs_input_grad
+        dz = (lrelu_grad(dy, y) if ctx.act else dy).contiguous()
+        dx = ds = dw = dd = None
+        if need_x:
+            w_t = w.flip((0, 1)).transpose(2, 3).contiguous()
+            dx = modconv3x3(dz, demod, w_t, style)
+        if need_s or need_w or need_d:
+            p = _per_sample_wgrad(x, dz)
+            ps = p if style is None else p * style[:, None, None, :, None]
+            pd = p if demod is None else p * demod[:, None, None, None, :]
+            if need_w:
+                dw = (ps if demod is None else ps * demod[:, None, None, None, :]).sum(0)
+            if need_s:
+                ds = (pd * w).sum((1, 2, 4))
+            if need_d:
+                dd = (ps * w).sum((1, 2, 3))
+        dn, dnw = noise_grads(dz, noise, noise_weight, need_n, need_nw)
+        db = dz.sum((0, 1, 2)) if need_b else None
+        return dx, ds, dw, dd, dn, dnw, db, None
+
+
+def modconv3x3(x, style, w, demod=None, noise=None, noise_weight=None,
+               bias=None, act=False):
+    """Same contract as ``modconv3x3_plain``, differentiable (twice and
+    more) in every tensor argument."""
+    return _ModConv3x3.apply(x, style, w, demod, noise, noise_weight, bias, act)

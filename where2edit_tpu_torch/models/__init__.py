@@ -2,6 +2,7 @@
 
 from where2edit_tpu_torch.models.clip_model import TextTransformer
 from where2edit_tpu_torch.models.stylegan2 import (
+    Discriminator,
     Generator,
     GeneratorOutput,
     blend_tap_indices,
@@ -9,6 +10,7 @@ from where2edit_tpu_torch.models.stylegan2 import (
 )
 
 __all__ = [
+    "Discriminator",
     "Generator",
     "GeneratorOutput",
     "TextTransformer",

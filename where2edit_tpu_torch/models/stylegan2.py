@@ -1,5 +1,5 @@
-"""StyleGAN2 generator with region-attention synthesis (counterpart of
-where2edit_tpu/models/stylegan2.py), NHWC.
+"""StyleGAN2 generator with region-attention synthesis, and the
+discriminator (counterparts of where2edit_tpu/models/stylegan2.py), NHWC.
 
 Layer schedule at 1024²: conv1, to_rgb1, then 8 octaves of (up-conv, conv,
 to_rgb): 26 style vectors and 26 feature taps. The 1-based
@@ -18,8 +18,10 @@ from torch import nn
 
 from where2edit_tpu_torch.nn.layers import (
     ConstantInput,
+    ConvLayer,
     EqualLinear,
     PixelNorm,
+    ResBlock,
     StyledConv,
     ToRGB,
 )
@@ -123,6 +125,15 @@ class Generator(nn.Module):
         """z → w: PixelNorm + the equalised fused-lrelu MLP."""
         return self.style(z)
 
+    def mix_latents(self, w1: torch.Tensor, w2: torch.Tensor,
+                    inject) -> torch.Tensor:
+        """W+ (B, n_latent, 512) whose rows before ``inject`` come from w1
+        (B, 512) and the rest from w2; ``inject`` is an int or a 0-dim
+        tensor (it may stay on the device), ``n_latent`` for no mixing."""
+        row = torch.arange(self.n_latent, device=w1.device)
+        return torch.where(row[None, :, None] < inject, w1[:, None, :],
+                           w2[:, None, :])
+
     def mean_latent(self, n_latent: int, rng: torch.Generator) -> torch.Tensor:
         z = torch.randn(n_latent, self.style_dim, generator=rng,
                         device=self.device)
@@ -177,9 +188,7 @@ class Generator(nn.Module):
                 inject_index = int(torch.randint(1, self.n_latent, (1,),
                                                  generator=rng,
                                                  device=rng.device))
-            row = torch.arange(self.n_latent, device=styles[0].device)
-            latent = torch.where(row[None, :, None] < inject_index,
-                                 styles[0][:, None, :], styles[1][:, None, :])
+            latent = self.mix_latents(styles[0], styles[1], inject_index)
 
         blending = attention_map is not None
         keep_taps = None if tap_indices is None else set(tap_indices)
@@ -245,3 +254,43 @@ class Generator(nn.Module):
             latent=latent if keep else None,
             style_vector=style_vector if keep else None,
             feature_map=taps if return_features else None)
+
+
+class Discriminator(nn.Module):
+    """ResBlocks down to 4², the minibatch-stddev channel, a 3x3 conv and
+    two equalised linears; input (B, size, size, 3), output (B, 1).
+    Parameters in the reference layout (``convs.N.…``, ``final_conv.…``,
+    ``final_linear.{0,1}.…``)."""
+
+    def __init__(self, size: int, channel_multiplier: int = 2,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 rng: torch.Generator | None = None):
+        super().__init__()
+        ch = channel_table(channel_multiplier)
+        log_size = int(math.log2(size))
+        convs = [ConvLayer(3, ch[size], 1, rng=rng)]
+        in_ch = ch[size]
+        for i in range(log_size, 2, -1):
+            out_ch = ch[2 ** (i - 1)]
+            convs.append(ResBlock(in_ch, out_ch, blur_kernel, rng=rng))
+            in_ch = out_ch
+        self.convs = nn.Sequential(*convs)
+        self.stddev_group = 4
+        self.final_conv = ConvLayer(in_ch + 1, ch[4], 3, rng=rng)
+        self.final_linear = nn.Sequential(
+            EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu", rng=rng),
+            EqualLinear(ch[4], 1, rng=rng))
+
+    def forward(self, x):
+        out = self.convs(x)
+        b, h, w, c = out.shape
+        # one stddev feature per group of min(B, 4) samples, sample i in
+        # group i % (B / group) as the reference's view(group, -1, ...)
+        group = min(b, self.stddev_group)
+        stddev = out.reshape(group, -1, h, w, c)
+        stddev = torch.sqrt(stddev.var(0, unbiased=False) + 1e-8)
+        stddev = stddev.mean((1, 2, 3)).reshape(-1, 1, 1, 1)
+        out = torch.cat([out, stddev.repeat(group, h, w, 1)], -1)
+        out = self.final_conv(out)
+        # the reference flattens NCHW
+        return self.final_linear(out.permute(0, 3, 1, 2).reshape(b, -1))

@@ -3,10 +3,15 @@
 from where2edit_tpu_torch.nn.layers import (
     Blur,
     ConstantInput,
+    ConvLayer,
+    Downsample,
+    EqualConv2d,
     EqualLinear,
     ModulatedConv2d,
     NoiseInjection,
     PixelNorm,
+    ResBlock,
+    ScaledLeakyReLU,
     StyledConv,
     ToRGB,
     Upsample,
@@ -16,10 +21,15 @@ from where2edit_tpu_torch.nn.layers import (
 __all__ = [
     "Blur",
     "ConstantInput",
+    "ConvLayer",
+    "Downsample",
+    "EqualConv2d",
     "EqualLinear",
     "ModulatedConv2d",
     "NoiseInjection",
     "PixelNorm",
+    "ResBlock",
+    "ScaledLeakyReLU",
     "StyledConv",
     "ToRGB",
     "Upsample",

@@ -13,7 +13,17 @@ layer that owns the epilogue passes it into that same call: a 3x3
 ``StyledConv`` fuses noise, bias and lrelu into K1; a 1x1 ``StyledConv`` and
 every ``ToRGB`` fuse theirs (ToRGB: bias, then the upsampled skip) into K3.
 The upsampling branch is plain PyTorch: transposed conv, demod, then
-``Blur(pad=(1, 1), ×4)``.
+``Blur(pad=(1, 1), ×4)``. Its transposed conv, every plain conv with a
+trained weight and every FIR blur go through ``ops.conv``, whose gradient
+of a gradient stays one cuDNN call per convolution.
+
+The discriminator's layers (``EqualConv2d``, ``ConvLayer``, ``ResBlock``)
+keep the reference's ``nn.Sequential`` key layout (``convs.N.0.weight``,
+``convs.N.1.bias``, …). A stride-1 3x3 ``EqualConv2d`` is one K2
+(``conv3x3``) call into which its ``ConvLayer`` passes the activation and
+its bias; the downsampling layers (blur, then a stride-2 conv) and the 1x1
+convs are plain PyTorch. Every kernel call is a twice-differentiable
+autograd Function, so R1 and the path length penalty train through them.
 """
 
 from __future__ import annotations
@@ -25,9 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 from where2edit_tpu_torch.kernels.common import plain_epilogue
+from where2edit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
 
@@ -82,6 +94,48 @@ class Blur(nn.Module):
         return upfirdn2d(x, self.kernel, pad=self.pad)
 
 
+class ScaledLeakyReLU(nn.Module):
+    """lrelu(x, 0.2)·√2 without a bias."""
+
+    def __init__(self, negative_slope: float = 0.2):
+        super().__init__()
+        self.negative_slope = negative_slope
+
+    def forward(self, x):
+        return fused_leaky_relu(x, None, self.negative_slope)
+
+
+class EqualConv2d(nn.Module):
+    """Equalised-lr conv, NHWC in and out: ``weight`` (Cout, Cin, k, k)
+    scaled by 1/sqrt(Cin·k²) at run time, optional ``bias`` (Cout,)."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0, bias: bool = True,
+                 rng: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.randn(
+            out_channel, in_channel, kernel_size, kernel_size, generator=rng))
+        self.scale = 1.0 / math.sqrt(in_channel * kernel_size ** 2)
+        self.stride = stride
+        self.padding = padding
+        self.bias = nn.Parameter(torch.zeros(out_channel)) if bias else None
+
+    def forward(self, x):
+        return self.fused(x, self.bias, act=False)
+
+    def fused(self, x, bias, act: bool):
+        """act(conv(x) + bias), act = lrelu·√2: one K2 call for a stride-1
+        3x3 conv, plain PyTorch otherwise."""
+        k = self.weight.shape[-1]
+        if k == 3 and self.stride == 1 and self.padding == 1:
+            return k2.conv3x3(x.contiguous(),
+                              self.weight.permute(2, 3, 1, 0).contiguous(),
+                              self.scale, bias, act)
+        y = conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
+                   self.stride, self.padding)
+        return plain_epilogue(y.permute(0, 2, 3, 1), None, None, bias, act)
+
+
 class Upsample(nn.Module):
     """FIR upsample ×2 of the ToRGB skip."""
 
@@ -95,6 +149,21 @@ class Upsample(nn.Module):
 
     def forward(self, x):
         return upfirdn2d(x, self.kernel, up=self.factor, pad=self.pad)
+
+
+class Downsample(nn.Module):
+    """FIR downsample ×2."""
+
+    def __init__(self, kernel: Sequence[int] = (1, 3, 3, 1), factor: int = 2):
+        super().__init__()
+        k = make_kernel(kernel)
+        self.register_buffer("kernel", torch.from_numpy(k))
+        self.factor = factor
+        p = k.shape[0] - factor
+        self.pad = ((p + 1) // 2, p // 2)
+
+    def forward(self, x):
+        return upfirdn2d(x, self.kernel, down=self.factor, pad=self.pad)
 
 
 class ModulatedConv2d(nn.Module):
@@ -176,7 +245,7 @@ class ModulatedConv2d(nn.Module):
 
         if self.upsample:
             xm = (x * style_eff[:, None, None, :]).permute(0, 3, 1, 2)
-            out = F.conv_transpose2d(xm, wk.transpose(0, 1), stride=2)
+            out = conv_transpose2d(xm, wk.transpose(0, 1), 2)
             out = out.permute(0, 2, 3, 1)
             if demod is not None:
                 out = out * demod[:, None, None, :]
@@ -281,3 +350,58 @@ class ToRGB(nn.Module):
             residual = self.upsample(skip).contiguous()
         return self.conv(x, style, input_is_stylespace,
                          bias=self.bias.view(3), residual=residual)
+
+
+class ConvLayer(nn.Sequential):
+    """[Blur,] EqualConv2d[, FusedLeakyReLU | ScaledLeakyReLU], the
+    discriminator's conv stack, indexed as the reference's Sequential. A
+    downsampling layer blurs, then convolves with stride 2 and no padding."""
+
+    def __init__(self, in_channel: int, out_channel: int, kernel_size: int,
+                 downsample: bool = False,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1), bias: bool = True,
+                 activate: bool = True, rng: torch.Generator | None = None):
+        layers = []
+        if downsample:
+            p = (len(blur_kernel) - 2) + (kernel_size - 1)
+            layers.append(Blur(blur_kernel, pad=((p + 1) // 2, p // 2)))
+            stride, padding = 2, 0
+        else:
+            stride, padding = 1, kernel_size // 2
+        layers.append(EqualConv2d(in_channel, out_channel, kernel_size,
+                                  stride=stride, padding=padding,
+                                  bias=bias and not activate, rng=rng))
+        if activate:
+            layers.append(FusedLeakyReLU(out_channel) if bias
+                          else ScaledLeakyReLU())
+        super().__init__(*layers)
+        self.downsample = downsample
+        self.activate = activate
+
+    def forward(self, x):
+        if self.downsample:
+            x = self[0](x)
+        conv = self[1 if self.downsample else 0]
+        if not self.activate:
+            return conv(x)
+        return conv.fused(x, getattr(self[-1], "bias", None), act=True)
+
+
+class ResBlock(nn.Module):
+    """Discriminator residual block: (conv1, downsampling conv2) + a
+    downsampling 1x1 skip, over √2."""
+
+    def __init__(self, in_channel: int, out_channel: int,
+                 blur_kernel: Sequence[int] = (1, 3, 3, 1),
+                 rng: torch.Generator | None = None):
+        super().__init__()
+        self.conv1 = ConvLayer(in_channel, in_channel, 3, rng=rng)
+        self.conv2 = ConvLayer(in_channel, out_channel, 3, downsample=True,
+                               blur_kernel=blur_kernel, rng=rng)
+        self.skip = ConvLayer(in_channel, out_channel, 1, downsample=True,
+                              blur_kernel=blur_kernel, bias=False,
+                              activate=False, rng=rng)
+
+    def forward(self, x):
+        out = self.conv2(self.conv1(x))
+        return (out + self.skip(x)) / math.sqrt(2.0)

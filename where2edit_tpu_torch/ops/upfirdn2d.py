@@ -5,7 +5,8 @@ Semantics of the reference: zero-stuff by ``up`` (a zero *after* every
 sample, the last one included), pad by ``(pad0, pad1)`` on each spatial edge
 (negative pads crop), convolve with the 2-D FIR ``kernel`` (a true
 convolution, so the kernel is flipped for ``F.conv2d``'s cross-correlation)
-and keep every ``down``-th sample. One depthwise ``F.conv2d``.
+and keep every ``down``-th sample. One depthwise convolution
+(``ops.conv.conv2d``: its gradient of a gradient stays one depthwise call).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from where2edit_tpu_torch.ops.conv import conv2d
 
 
 def make_kernel(k) -> np.ndarray:
@@ -40,5 +43,5 @@ def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
     pad0, pad1 = pad
     xc = F.pad(xc, [pad0, pad1, pad0, pad1])  # negative entries crop
     weight = torch.flip(k, (0, 1))[None, None].expand(c, 1, kh, kw)
-    out = F.conv2d(xc, weight, stride=down, groups=c)
+    out = conv2d(xc, weight, down, 0, c)
     return out.permute(0, 2, 3, 1)
