@@ -11,15 +11,21 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    them; turns TF32 off (the port's fp32 policy).
 2. build   — compiles the kernels from ``where2edit_tpu_torch/csrc`` with
    nvcc for sm_90a (in parallel) and prints the build seconds and ptxas'
-   register / shared-memory report.
+   register / shared-memory report; checks with ``cuobjdump --dump-sass``
+   that K2's library holds tensor-core (``HGMMA``) instructions.
 3. kernels — every shape the 1024² edit path gives K1 (``modconv3x3``) and
-   K3 (``modconv1x1``) at batch 1, and every shape the 1024² discriminator
-   gives K2 (``conv3x3``) at batch 8: the kernel against its plain PyTorch
-   version on the same inputs (fp32, max |Δ| / max |plain| <= 1e-4), the
-   kernel's, the plain version's and a library call's time (CUDA events
-   around eager calls back to back), the kernel's device time alone (calls
-   replayed from a CUDA graph), and the bound: max(bytes / 3.35 TB/s,
-   FLOP / 67 TFLOP/s fp32).
+   K3 (``modconv1x1``) at batch 1, every shape the 1024² discriminator
+   gives K2 (``conv3x3``) at batch 8, and K3's ToRGB shapes again at the
+   trainer's batch 8: the kernel against its plain PyTorch version on the
+   same inputs (fp32, max |Δ| / max |plain| <= 1e-4), the kernel's, the
+   plain version's and a library call's time (CUDA events around eager
+   calls back to back), the kernel's and the library call's device time
+   alone (calls replayed from a CUDA graph), and the bound: for K1 and K2
+   max(bytes / 3.35 TB/s, FLOP / 165 TFLOP/s, the 3xTF32 tensor-core rate),
+   the fp32 FMA time (FLOP / 67 TFLOP/s) beside it; for K3 max(bytes /
+   3.35 TB/s, FLOP / 67 TFLOP/s). A device time under 0.95 of its bound
+   fails the run (a timing that cannot be right). K3's launch grid is
+   printed per shape (``blocks``).
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
    the forward as the trainer runs it (K1 with per-sample noise, bias and
    the activation; K2 with bias and the activation; K3 as ToRGB with bias
@@ -92,6 +98,10 @@ from where2edit_tpu_torch.train.gan_trainer import Draws, GANTrainConfig, GANTra
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
+# fp32-accurate products on the tensor cores: three TF32 products each, at
+# the data sheet's dense TF32 rate of 495 TFLOP/s
+TC_3XTF32_FLOP_PER_S = 495e12 / 3
+BOUND_FLOOR = 0.95          # a device time under this share of its bound fails
 SIZE, ATTENTION_LAYER = 1024, 13
 KERNEL_REL_TOL = 1e-4
 # Whole-path tolerance, card against CPU at 256²: both run fp32 (TF32 off),
@@ -185,10 +195,18 @@ def graph_ms(fn, reps: int = 20) -> float:
     return ms
 
 
-def bound(nbytes: int, flops: int) -> tuple[float, str]:
+def bound(nbytes: int, flops: int, flop_per_s: float = FP32_FLOP_PER_S
+          ) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def conv_bounds(rec: dict, nbytes: int, flops: int) -> None:
+    """K1's and K2's bound at the 3xTF32 tensor-core rate, and the fp32 FMA
+    bound beside it."""
+    rec["bound_ms"], rec["bound_by"] = bound(nbytes, flops, TC_3XTF32_FLOP_PER_S)
+    rec["fma_bound_ms"] = bound(nbytes, flops)[0]
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> tuple[float, float]:
@@ -226,9 +244,14 @@ def phase_build() -> None:
         log = common.BUILD_DIR / f"{name}.log"
         if log.exists():
             report[name] = [ln.strip() for ln in log.read_text().splitlines()
-                            if "registers" in ln or "Compiling entry" in ln]
+                            if "registers" in ln or "Compiling entry" in ln
+                            or "spill" in ln]
+    sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass", str(common.library_path("conv3x3"))],
+                          capture_output=True, text=True, timeout=120, check=True).stdout
+    hgmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
     emit({"phase": "build", "arch": "sm_90a", "seconds": seconds,
-          "wall_s": wall, "ptxas": report})
+          "wall_s": wall, "conv3x3_hgmma_instructions": hgmma, "ptxas": report})
+    check(hgmma > 0, "K2's library holds no HGMMA (tensor-core) instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -267,19 +290,27 @@ def k2_shapes():
 def phase_kernels() -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(dev).manual_seed(0)
-    totals = {k: {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                  "bound_ms": 0.0,
-                  "bytes_s": 0.0, "ops_s": 0.0, "max_abs_err": 0.0,
-                  "max_rel_err": 0.0} for k in ("modconv3x3", "conv3x3", "modconv1x1")}
+    summed = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+              "bound_ms", "fma_bound_ms")
+    totals = {k: {**dict.fromkeys(summed, 0.0), "bytes_s": 0.0, "ops_s": 0.0,
+                  "max_abs_err": 0.0, "max_rel_err": 0.0}
+              for k in ("modconv3x3", "conv3x3", "modconv1x1")}
 
-    def add(name, rec):
+    def add(name, rec, in_total=True):
+        """Emit one shape's record; fold it into the kernel's totals (the
+        main path's shapes) unless ``in_total`` is false."""
+        emit({"phase": "kernels", "kernel": name, **rec})
+        check(rec["device_ms"] >= BOUND_FLOOR * rec["bound_ms"],
+              f"{name} {rec['shape']}: device {rec['device_ms']} ms under "
+              f"{BOUND_FLOOR} of its bound {rec['bound_ms']} ms")
+        if not in_total:
+            return
         tot = totals[name]
-        for key in ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms"):
+        for key in summed:
             tot[key] += rec[key]
         tot["bytes_s" if rec["bound_by"] == "bytes" else "ops_s"] += rec["bound_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
         tot["max_rel_err"] = max(tot["max_rel_err"], rec["max_rel_err"])
-        emit({"phase": "kernels", "kernel": name, **rec})
 
     def randn(*shape):
         return torch.randn(*shape, generator=g, device=dev)
@@ -315,49 +346,62 @@ def phase_kernels() -> dict:
                "ms": time_ms(lambda: k1.modconv3x3(*args)),
                "device_ms": graph_ms(lambda: k1.modconv3x3(*args)),
                "plain_ms": time_ms(lambda: k1.modconv3x3_plain(*args)),
-               "library_ms": time_ms(library)}
+               "library_ms": time_ms(library), "library_device_ms": graph_ms(library)}
         nbytes = 4 * (x.numel() + style.numel() + w.numel() + demod.numel()
                       + noise.numel() + 1 + bias.numel() + got.numel())
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * res * res * cin * cout * 9)
+        conv_bounds(rec, nbytes, 2 * res * res * cin * cout * 9)
         add("modconv3x3", rec)
         del x, w, got, want, w_lib
 
-    for name, res, cin, cout, styled, has_res in k3_shapes():
+    def k3_shape(name, res, cin, cout, styled, has_res, batch, in_total):
         p = res * res
-        x, s, w = randn(1, p, cin), randn(1, cin), randn(cin, cout)
+        x, s, w = randn(batch, p, cin), randn(batch, cin), randn(cin, cout)
         scale = 1.0 / math.sqrt(cin)
         style = (scale * s).contiguous()
         demod = (torch.rsqrt(s.square() @ (scale * w).square() + 1e-8)
                  if styled else None)
         noise, nw = (randn(1, p), randn(1)) if styled else (None, None)
         bias = randn(cout)
-        residual = randn(1, p, cout) if has_res else None
+        residual = randn(batch, p, cout) if has_res else None
         args = (x, style, w, demod, noise, nw, bias, styled, residual)
         got = k3.modconv1x1(*args)
         want = k3.modconv1x1_plain(*args)
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
-        check(rel <= KERNEL_REL_TOL, f"modconv1x1 {name}: rel {rel}")
-        w_lib = style[0][:, None] * w * (demod[0][None, :] if styled else 1.0)
+        check(rel <= KERNEL_REL_TOL, f"modconv1x1 {name} batch {batch}: rel {rel}")
+        # library yardstick: one batched product with the per-sample style
+        # and demod folded into the weights, then the epilogue
+        w_lib = style[:, :, None] * w * (demod[:, None, :] if styled else 1.0)
 
         def library():
-            y = torch.einsum("pi,io->po", x[0], w_lib)
+            y = torch.einsum("bpi,bio->bpo", x, w_lib)
             if styled:
-                y.add_(nw * noise[0][:, None]).add_(bias)
+                y.add_(nw * noise[:, :, None]).add_(bias)
                 return F.leaky_relu_(y, 0.2).mul_(math.sqrt(2.0))
             y.add_(bias)
-            return y if residual is None else y.add_(residual[0])
+            return y if residual is None else y.add_(residual)
 
-        rec = {"shape": f"{name} {res}x{res} {cin}->{cout}",
+        rec = {"shape": f"{name} {res}x{res} {cin}->{cout}"
+                        + (f" batch {batch}" if batch > 1 else ""),
+               "blocks": k3.blocks(batch, p, cin, cout, dev.index),
                "max_abs_err": abs_err, "max_rel_err": rel,
                "ms": time_ms(lambda: k3.modconv1x1(*args)),
                "device_ms": graph_ms(lambda: k3.modconv1x1(*args)),
                "plain_ms": time_ms(lambda: k3.modconv1x1_plain(*args)),
-               "library_ms": time_ms(library)}
+               "library_ms": time_ms(library), "library_device_ms": graph_ms(library)}
         nbytes = 4 * sum(t.numel() for t in (x, style, w, demod, noise, nw, bias,
                                              residual, got) if t is not None)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * p * cin * cout)
-        add("modconv1x1", rec)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * batch * p * cin * cout)
+        rec["fma_bound_ms"] = rec["bound_ms"]  # K3 runs on the FMA units
+        add("modconv1x1", rec, in_total)
+        return rec
+
+    for shape in k3_shapes():
+        rec = k3_shape(*shape, 1, True)
+        if shape[0] == "to_rgb_16":  # the design spreads even this over the card
+            check(rec["blocks"] > 1, f"K3 at to_rgb_16 launched {rec['blocks']} block")
+    for shape in k3_shapes()[:9]:  # the ToRGBs at the trainer's batch
+        k3_shape(*shape, 8, False)
 
     batch = 8
     for res, cin, cout in k2_shapes():
@@ -383,10 +427,9 @@ def phase_kernels() -> dict:
                "ms": time_ms(lambda: k2.conv3x3(*args)),
                "device_ms": graph_ms(lambda: k2.conv3x3(*args)),
                "plain_ms": time_ms(lambda: k2.conv3x3_plain(*args)),
-               "library_ms": time_ms(library)}
+               "library_ms": time_ms(library), "library_device_ms": graph_ms(library)}
         nbytes = 4 * (x.numel() + w.numel() + bias.numel() + got.numel())
-        rec["bound_ms"], rec["bound_by"] = bound(
-            nbytes, 2 * batch * res * res * cin * cout * 9)
+        conv_bounds(rec, nbytes, 2 * batch * res * res * cin * cout * 9)
         add("conv3x3", rec)
         del x, w, got, want, w_lib
     return totals
@@ -610,7 +653,7 @@ def phase_slice() -> dict:
 # kernel-name substrings -> category, first match wins
 CATEGORIES = (
     ("K1 modconv3x3", ("modconv3x3",)),
-    ("K2 conv3x3", ("conv3x3::",)),
+    ("K2 conv3x3", ("conv3x3_tc",)),
     ("K3 modconv1x1", ("modconv1x1",)),
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
     ("cuDNN weight gradients", ("wgrad",)),
@@ -1005,13 +1048,19 @@ def main(argv=None) -> None:
             "device_ms": tot["device_ms"],
             "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+            "fma_bound_ms": tot["fma_bound_ms"],
             "library_ms": tot["library_ms"],
+            "library_device_ms": tot["library_device_ms"],
             "note": "ms, device_ms, plain_ms, bound_ms, library_ms: sums over "
                     + ("the 1024² discriminator's shapes at batch 8"
                        if name == "conv3x3" else "the edit path's shapes at batch 1")
                     + ", one call each; ms, plain_ms and library_ms are eager "
                     "calls back to back (the host's launch cost included), "
-                    "device_ms is the kernel replayed from a CUDA graph; "
+                    "device_ms and library_device_ms are the kernel and the "
+                    "library call replayed from a CUDA graph; bound_ms at the "
+                    "3xTF32 tensor-core rate for modconv3x3 and conv3x3 "
+                    "(fma_bound_ms at the fp32 FMA rate), at the fp32 FMA "
+                    "rate for modconv1x1; "
                     "launches: the edit path's run (phase 5) plus the training "
                     "run's (phase 8), of which train_backward_launches inside "
                     "backward passes"})

@@ -2,8 +2,11 @@
 the main paths do not reach (odd spatial sizes, Cout not a multiple of the
 tile, Cin and Cout not multiples of 4 or of the staged chunk, batch 2 with a
 broadcast noise, every optional epilogue input on and off), K1 and K2 both
-with and without their Cin split across blocks, and the backward of the
-three autograd Functions against autograd through the plain versions.
+with and without their Cin split across blocks, K2 at odd counts of pixel
+and Cout tiles and at the discriminator's widest K (9·512, where a tensor-
+core sum carried through all of K would drift), K3 at the few-block shapes
+of the edit path, and the backward of the three autograd Functions against
+autograd through the plain versions.
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
 
@@ -74,6 +77,16 @@ def test_torch_cuda_modconv3x3(dev, b, h, w, cin, cout, demod, noise, bias, act)
     (2, 300, 33, 5, True, "batch", True, True, False),
     (1, 129, 576, 32, True, "shared", True, True, False),
     (2, 64, 7, 1, True, "shared", False, True, True),
+    # the edit path's few-block shapes: ToRGB 4², 16², 64² at Cin 512 with
+    # the skip, the mapper's attention convs, attention_last
+    (1, 16, 512, 3, False, None, True, False, True),
+    (1, 256, 512, 3, False, None, True, False, True),
+    (1, 4096, 512, 3, False, None, True, False, True),
+    (1, 16, 512, 32, True, "shared", True, True, False),
+    (2, 256, 512, 32, True, "shared", True, True, False),
+    (1, 4096, 512, 32, True, "batch", True, True, False),
+    (1, 4096, 576, 1, True, "shared", True, True, False),
+    (2, 4096, 64, 32, True, "shared", True, True, False),
 ])
 def test_torch_cuda_modconv1x1(dev, b, p, cin, cout, demod, noise, bias, act, res):
     g = torch.Generator(dev).manual_seed(cin * cout)
@@ -99,6 +112,13 @@ def test_torch_cuda_modconv1x1(dev, b, p, cin, cout, demod, noise, bias, act, re
     (2, 9, 11, 5, 7, True, True),
     (1, 33, 20, 32, 32, True, False),
     (2, 16, 16, 64, 64, False, True),
+    # odd pixel-tile and Cout-tile counts, a Cout tile mostly padding
+    (3, 24, 40, 16, 96, True, True),
+    (1, 40, 33, 200, 136, True, False),
+    # K = 9·512 with and without split-K (16² and 8² split at batch 8)
+    (2, 32, 32, 512, 512, True, True),
+    (8, 16, 16, 512, 512, True, True),
+    (8, 8, 8, 512, 512, True, True),
 ])
 def test_torch_cuda_conv3x3(dev, b, h, w, cin, cout, bias, act):
     g = torch.Generator(dev).manual_seed(cin + 2 * cout)
@@ -141,7 +161,9 @@ def test_torch_cuda_modconv3x3_backward(dev, b, h, w, cin, cout):
     assert k1.launches == n1 + 2  # forward, then the input gradient
 
 
-@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 4, 4, 513, 512), (2, 9, 11, 5, 7)])
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 4, 4, 513, 512), (2, 9, 11, 5, 7),
+                                             (8, 4, 4, 513, 512), (4, 16, 16, 512, 512),
+                                             (2, 24, 40, 64, 64)])
 def test_torch_cuda_conv3x3_backward(dev, b, h, w, cin, cout):
     g = torch.Generator(dev).manual_seed(5 * cin + cout)
 

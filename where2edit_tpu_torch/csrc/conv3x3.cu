@@ -12,30 +12,36 @@
 // with scale = 1/sqrt(9 Cin) of the layer (the equalised learning rate),
 // act = lrelu(0.2)*sqrt(2) when `act` is set and bias optional. With the
 // flipped, transposed weights and no epilogue it is also its own input
-// gradient (kernels/conv3x3.py). It is K1's kernel (conv3x3_core.cuh) with
-// no style, demod or noise; ragged channel counts (final_conv's 513 inputs,
-// its input gradient's 513 outputs) are masked in the kernel.
+// gradient (kernels/conv3x3.py). Bound on the H100: operations. The kernel
+// is an implicit GEMM on the tensor cores in 3xTF32 (conv3x3_tc.cuh, which
+// says why that keeps fp32 accuracy); ragged channel counts (final_conv's
+// 513 inputs, its input gradient's 513 outputs) are zero-padded in shared
+// memory and masked at the stores.
 
-#define W2E_CORE_NS conv3x3
-#include "conv3x3_core.cuh"
+#include "conv3x3_tc.cuh"
 
-using namespace conv3x3;
-
-// How many ways K2 splits Cin for this shape on a card with `sms` SMs.
+// How many ways K2 splits its K range for this shape on a card with `sms`
+// SMs.
 extern "C" int w2e_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                   int sms) {
-  return conv3x3_splits(B, H, W, Cin, Cout, sms);
+  return conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms);
 }
 
-// x (B,H,W,Cin), wt (3,3,Cin,Cout), bias (Cout,) or null, out (B,H,W,Cout);
-// with splits > 1 (from w2e_conv3x3_splits), partial is fp32 scratch of
-// splits*B*H*W*Cout. All pointers 16-byte aligned (checked by the Python
+// fp32 scratch (floats) a call with this shape and split count needs.
+extern "C" long long w2e_conv3x3_workspace(int B, int H, int W, int Cin,
+                                           int Cout, int splits) {
+  return conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits);
+}
+
+// x (B,H,W,Cin), wt (3,3,Cin,Cout), bias (Cout,) or null, out (B,H,W,Cout),
+// work: w2e_conv3x3_workspace floats of scratch; splits from
+// w2e_conv3x3_splits. x, wt and work 16-byte aligned (checked by the Python
 // wrapper). Returns the launches' cudaGetLastError().
 extern "C" int w2e_conv3x3(const float* x, const float* wt, const float* bias,
-                           float* out, float* partial, int B, int H, int W,
+                           float* out, float* work, int B, int H, int W,
                            int Cin, int Cout, int splits, int act, float scale,
                            void* stream) {
-  return conv3x3_launch(x, nullptr, wt, nullptr, scale, nullptr, 0, nullptr,
-                        bias, out, partial, B, H, W, Cin, Cout, splits, act,
-                        static_cast<cudaStream_t>(stream));
+  return conv3x3_tc::conv3x3_tc_launch(x, wt, scale, bias, out, work, B, H, W,
+                                       Cin, Cout, splits, act,
+                                       static_cast<cudaStream_t>(stream));
 }

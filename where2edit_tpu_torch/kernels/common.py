@@ -47,6 +47,11 @@ def _nvcc() -> str:
     return path
 
 
+def cuda_tool(name: str) -> str:
+    """A tool of the CUDA toolkit that holds ``nvcc`` (e.g. ``cuobjdump``)."""
+    return os.path.join(os.path.dirname(_nvcc()), name)
+
+
 def library_path(name: str) -> Path:
     src = b"".join(p.read_bytes() for p in
                    [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))])
@@ -85,7 +90,8 @@ def build(names=KERNEL_SOURCES) -> dict[str, float]:
     return seconds
 
 
-def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
+def load(name: str, symbol: str, argtypes: list,
+         restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of ``csrc/<name>.cu``, building it first
     if needed."""
     fn = _functions.get((name, symbol))
@@ -95,9 +101,14 @@ def load(name: str, symbol: str, argtypes: list) -> ctypes._CFuncPtr:
             _loaded[name] = ctypes.CDLL(str(library_path(name)))
         fn = getattr(_loaded[name], symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _functions[(name, symbol)] = fn
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -105,9 +116,8 @@ def split_count(name: str, b: int, h: int, wd: int, cin: int, cout: int,
                 device_index: int) -> int:
     """How many blocks share each output tile's Cin range in the 3x3 core of
     ``csrc/<name>.cu`` (its ``w2e_<name>_splits``), per shape and card."""
-    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
     return load(name, f"w2e_{name}_splits", [ctypes.c_int] * 6)(
-        b, h, wd, cin, cout, sms)
+        b, h, wd, cin, cout, sm_count(device_index))
 
 
 def ptr(t: torch.Tensor | None) -> int | None:

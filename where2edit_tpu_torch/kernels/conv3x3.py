@@ -4,10 +4,12 @@ Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_fused`` (body
 ``_kernel``): ``act(conv3x3(x, w·scale) + bias)``, NHWC, stride 1, pad 1,
 fp32 accumulation, act = lrelu(0.2)·√2 or none. It runs every
 non-downsampling 3x3 ``ConvLayer`` of the discriminator. Source:
-``csrc/conv3x3.cu``, K1's core (``csrc/conv3x3_core.cuh``) with no style,
-demod or noise, and ragged channel counts (the final conv's 512 + 1
-minibatch-stddev inputs) masked in the kernel. Bound on the H100: fp32
-operations from 32² up (see the core's header).
+``csrc/conv3x3.cu`` on ``csrc/conv3x3_tc.cuh``: an implicit GEMM on the
+tensor cores (``wgmma``) in 3xTF32, each fp32 operand split into two TF32
+parts and each product taken as three TF32 products, which keeps fp32
+accuracy; ragged channel counts (the final conv's 512 + 1 minibatch-stddev
+inputs) are zero-padded in the kernel. Bound on the H100: operations, at
+the 3xTF32 rate (see the core's header).
 
 ``conv3x3`` is a ``torch.autograd.Function`` whose forward dispatches on
 the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
@@ -21,6 +23,7 @@ counts kernel launches, forward and backward alike.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -49,6 +52,14 @@ def conv3x3_plain(x, w, scale, bias=None, act=False):
     return plain_epilogue(y, None, None, bias, act)
 
 
+@functools.lru_cache(maxsize=None)
+def workspace_floats(b, h, wd, cin, cout, splits) -> int:
+    """fp32 scratch one call needs: the prepared (split, tiled) weights and,
+    with splits > 1, the split-K partial sums."""
+    return load("conv3x3", "w2e_conv3x3_workspace", [ctypes.c_int] * 6,
+                ctypes.c_longlong)(b, h, wd, cin, cout, splits)
+
+
 def _launch(x, w, scale, bias, act):
     """The kernel on CUDA tensors, same contract as ``conv3x3_plain``."""
     b, h, wd, cin = x.shape
@@ -60,10 +71,10 @@ def _launch(x, w, scale, bias, act):
         check_cuda_tensor("bias", bias, (cout,), dev)
     out = torch.empty((b, h, wd, cout), device=dev, dtype=torch.float32)
     splits = split_count("conv3x3", b, h, wd, cin, cout, dev.index)
-    partial = (torch.empty((splits, b, h, wd, cout), device=dev,
-                           dtype=torch.float32) if splits > 1 else None)
+    work = torch.empty(workspace_floats(b, h, wd, cin, cout, splits),
+                       device=dev, dtype=torch.float32)
     fn = load("conv3x3", "w2e_conv3x3", _ARGTYPES)
-    rc = fn(ptr(x), ptr(w), ptr(bias), ptr(out), ptr(partial), b, h, wd, cin,
+    rc = fn(ptr(x), ptr(w), ptr(bias), ptr(out), ptr(work), b, h, wd, cin,
             cout, splits, int(act), float(scale),
             torch.cuda.current_stream(dev).cuda_stream)
     check_launch("conv3x3", rc)

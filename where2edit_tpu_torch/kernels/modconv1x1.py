@@ -3,9 +3,11 @@
 Replaces the TPU kernel ``tools/pallas_bench.py::modulated_conv1x1`` (body
 ``_kernel``). Source: ``csrc/modconv1x1.cu``. Bound on the H100: bytes
 (Cout <= 32 on the path, so each input value feeds at most 32 multiply-adds);
-the kernel folds style·weight into shared memory once per block and streams
-the pixels through it once, applying demod, noise, bias, the activation and
-the residual before the single store (see the source's header).
+a group of up to 32 lanes shares each pixel's Cin row, against a
+style·weight fold made once per block in shared memory, reduces across the
+group with warp shuffles and applies demod, noise, bias, the activation and
+the residual before the single store (see the source's header). Any Cin
+works: a Cin that is not a multiple of 4 is read one float at a time.
 
 ``modconv1x1`` is a ``torch.autograd.Function`` whose forward dispatches on
 the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
@@ -31,13 +33,14 @@ from where2edit_tpu_torch.kernels.common import (
     noise_grads,
     plain_epilogue,
     ptr,
+    sm_count,
 )
 
 launches = 0
 MAX_COUT = 32
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
-    + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 
 def modconv1x1_plain(x, style, w, demod=None, noise=None, noise_weight=None,
@@ -49,6 +52,12 @@ def modconv1x1_plain(x, style, w, demod=None, noise=None, noise_weight=None,
     if demod is not None:
         y = y * demod[:, None, :]
     return plain_epilogue(y, noise, noise_weight, bias, act, residual)
+
+
+def blocks(b, p, cin, cout, device_index=0) -> int:
+    """Blocks the kernel launches for this shape on the card (0: not taken)."""
+    return load("modconv1x1", "w2e_modconv1x1_blocks", [ctypes.c_int] * 5)(
+        b, p, cin, cout, sm_count(device_index))
 
 
 def _launch(x, style, w, demod, noise, noise_weight, bias, act, residual):
@@ -80,7 +89,7 @@ def _launch(x, style, w, demod, noise, noise_weight, bias, act, residual):
     rc = fn(ptr(x), ptr(style), ptr(w), ptr(demod), ptr(noise), noise_bstride,
             ptr(noise_weight) if noise is not None else None, ptr(bias),
             ptr(residual), ptr(out), b, p, cin, cout, int(act),
-            torch.cuda.current_stream(dev).cuda_stream)
+            sm_count(dev.index), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("modconv1x1", rc)
     global launches
     launches += 1

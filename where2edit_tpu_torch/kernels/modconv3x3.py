@@ -1,8 +1,9 @@
 """K1: modulated 3x3 conv + demod + noise + bias + lrelu, one kernel.
 
 Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_mod_fused`` (body
-``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on the core it shares with
-K2 (``csrc/conv3x3_core.cuh``). Bound on the H100: fp32 operations (~19.3
+``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on the FMA core
+``csrc/conv3x3_core.cuh`` (K2 shared it until it moved to the tensor
+cores). Bound on the H100: fp32 operations (~19.3
 GFLOP per layer from 64² up against at most ~270 MB); the kernel stages the
 style-modulated input tile and the weights in shared memory and accumulates
 a register tile per thread with FMAs, applying the whole epilogue before
