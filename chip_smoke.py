@@ -12,7 +12,8 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
 2. build   — compiles the kernels from ``where2edit_tpu_torch/csrc`` with
    nvcc for sm_90a (in parallel) and prints the build seconds and ptxas'
    register / shared-memory report; checks with ``cuobjdump --dump-sass``
-   that K2's library holds tensor-core (``HGMMA``) instructions.
+   that K1's and K2's libraries (both on ``csrc/conv3x3_tc.cuh``) hold
+   tensor-core (``HGMMA``) instructions.
 3. kernels — every shape the 1024² edit path gives K1 (``modconv3x3``) and
    K3 (``modconv1x1``) at batch 1, every shape the 1024² discriminator
    gives K2 (``conv3x3``) at batch 8, and K3's ToRGB shapes again at the
@@ -25,7 +26,9 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    the fp32 FMA time (FLOP / 67 TFLOP/s) beside it; for K3 max(bytes /
    3.35 TB/s, FLOP / 67 TFLOP/s). A device time under 0.95 of its bound
    fails the run (a timing that cannot be right). K3's launch grid is
-   printed per shape (``blocks``).
+   printed per shape (``blocks``). K1 is also run and timed with its
+   weights prepared once (``prepared=``, as the edit path calls it), which
+   must give the same bits as the call that prepares them itself.
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
    the forward as the trainer runs it (K1 with per-sample noise, bias and
    the activation; K2 with bias and the activation; K3 as ToRGB with bias
@@ -37,12 +40,14 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    seeded random weights): one seeded face, three edits and one 2-prompt
    sweep through ``EditSession``, with the launch counters set to 0 just
    before and read just after (K1 +9 and K3 +9 per capture, K1 +9 and
-   K3 +28 per edit); then the p50 edit latency and its stage split.
+   K3 +28 per edit, and no K1 weight preparation in an edit: the layers
+   keep K1's prepared weights per weight version); then the p50 edit
+   latency, its stage split, the peak memory and the size of that cache.
 6. profile — phase 5's session runs 5 more edits under ``torch.profiler``:
    wall and device-busy ms per edit (the profiler's own cost is inside that
    wall time), the device's idle share, kernel launches per edit, device
    busy time inside each stage, device time by kernel category and by
-   kernel.
+   kernel; more than ``MAX_EDIT_LAUNCHES`` launches per edit fail.
 7. whole   — the same seeded session at 256² on the card (kernels) and on
    the CPU (plain versions), from the same W+ and prompts.
 8. train   — adversarial training at full width through
@@ -102,6 +107,7 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 # the data sheet's dense TF32 rate of 495 TFLOP/s
 TC_3XTF32_FLOP_PER_S = 495e12 / 3
 BOUND_FLOOR = 0.95          # a device time under this share of its bound fails
+MAX_EDIT_LAUNCHES = 1441    # kernel launches per 1024² edit, phase 6
 SIZE, ATTENTION_LAYER = 1024, 13
 KERNEL_REL_TOL = 1e-4
 # Whole-path tolerance, card against CPU at 256²: both run fp32 (TF32 off),
@@ -246,12 +252,17 @@ def phase_build() -> None:
             report[name] = [ln.strip() for ln in log.read_text().splitlines()
                             if "registers" in ln or "Compiling entry" in ln
                             or "spill" in ln]
-    sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass", str(common.library_path("conv3x3"))],
-                          capture_output=True, text=True, timeout=120, check=True).stdout
-    hgmma = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
+    hgmma = {}
+    for name in ("modconv3x3", "conv3x3"):  # K1 and K2, on the tensor-core core
+        sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass",
+                               str(common.library_path(name))],
+                              capture_output=True, text=True, timeout=120,
+                              check=True).stdout
+        hgmma[name] = sum(1 for ln in sass.splitlines() if "HGMMA" in ln)
     emit({"phase": "build", "arch": "sm_90a", "seconds": seconds,
-          "wall_s": wall, "conv3x3_hgmma_instructions": hgmma, "ptxas": report})
-    check(hgmma > 0, "K2's library holds no HGMMA (tensor-core) instruction")
+          "wall_s": wall, "hgmma_instructions": hgmma, "ptxas": report})
+    for name, n in hgmma.items():
+        check(n > 0, f"{name}'s library holds no HGMMA (tensor-core) instruction")
 
 
 # ---------------------------------------------------------------------------
@@ -300,14 +311,18 @@ def phase_kernels() -> dict:
         """Emit one shape's record; fold it into the kernel's totals (the
         main path's shapes) unless ``in_total`` is false."""
         emit({"phase": "kernels", "kernel": name, **rec})
-        check(rec["device_ms"] >= BOUND_FLOOR * rec["bound_ms"],
-              f"{name} {rec['shape']}: device {rec['device_ms']} ms under "
-              f"{BOUND_FLOOR} of its bound {rec['bound_ms']} ms")
+        for key in ("device_ms", "prepared_device_ms"):
+            check(key not in rec or rec[key] >= BOUND_FLOOR * rec["bound_ms"],
+                  f"{name} {rec['shape']}: {key} {rec.get(key)} ms under "
+                  f"{BOUND_FLOOR} of its bound {rec['bound_ms']} ms")
         if not in_total:
             return
         tot = totals[name]
         for key in summed:
             tot[key] += rec[key]
+        for key in ("prepared_ms", "prepared_device_ms"):  # K1's alone
+            if key in rec:
+                tot[key] = tot.get(key, 0.0) + rec[key]
         tot["bytes_s" if rec["bound_by"] == "bytes" else "ops_s"] += rec["bound_ms"]
         tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
         tot["max_rel_err"] = max(tot["max_rel_err"], rec["max_rel_err"])
@@ -326,9 +341,14 @@ def phase_kernels() -> dict:
         args = (x, style, w, demod, noise, nw, bias, True)
         got = k1.modconv3x3(*args)
         want = k1.modconv3x3_plain(*args)
+        # the edit path's call: the weights prepared once, outside the call
+        wp = k1.prepare_weight(w)
+        got_prepared = k1.modconv3x3(*args, prepared=wp)
         torch.cuda.synchronize()
         abs_err, rel = rel_err(got, want)
         check(rel <= KERNEL_REL_TOL, f"modconv3x3 {res}² {cin}->{cout}: rel {rel}")
+        check(torch.equal(got_prepared, got),
+              f"modconv3x3 {res}² {cin}->{cout}: prepared weights change the result")
         # library yardstick: one cuDNN conv with the per-sample modulation and
         # demod folded into the weights (exact at batch 1), then the epilogue
         w_lib = (w.permute(3, 2, 0, 1) * style[0][None, :, None, None]
@@ -345,13 +365,15 @@ def phase_kernels() -> dict:
                "max_abs_err": abs_err, "max_rel_err": rel,
                "ms": time_ms(lambda: k1.modconv3x3(*args)),
                "device_ms": graph_ms(lambda: k1.modconv3x3(*args)),
+               "prepared_ms": time_ms(lambda: k1.modconv3x3(*args, prepared=wp)),
+               "prepared_device_ms": graph_ms(lambda: k1.modconv3x3(*args, prepared=wp)),
                "plain_ms": time_ms(lambda: k1.modconv3x3_plain(*args)),
                "library_ms": time_ms(library), "library_device_ms": graph_ms(library)}
         nbytes = 4 * (x.numel() + style.numel() + w.numel() + demod.numel()
                       + noise.numel() + 1 + bias.numel() + got.numel())
         conv_bounds(rec, nbytes, 2 * res * res * cin * cout * 9)
         add("modconv3x3", rec)
-        del x, w, got, want, w_lib
+        del x, w, wp, got, got_prepared, want, w_lib
 
     def k3_shape(name, res, cin, cout, styled, has_res, batch, in_total):
         p = res * res
@@ -580,6 +602,11 @@ def phase_slice() -> dict:
         check(after == (before[0] + d1, before[1] + d3),
               f"{what}: launches {before} -> {after}, expected +({d1}, {d3})")
 
+    def expect_no_prepare(before, what):
+        check(k1.prepares == before,
+              f"{what}: {k1.prepares - before} K1 weight preparations, expected 0 "
+              "(the layers keep them per weight version)")
+
     # one K1 per non-upsampling conv and one K3 per ToRGB in each synthesis,
     # one K3 per attention conv of the mapper: (9, 9) and (9, 28) at 1024²
     per_pass = 1 + len(session.generator.to_rgbs)
@@ -596,18 +623,20 @@ def phase_slice() -> dict:
     expect(before, *per_capture, "load_synthetic")
     n_taps = sum(f is not None for f in session.feature_map)
     for prompt, att, strength, thr in PROMPTS:
-        before = counts()
+        before, prepares = counts(), k1.prepares
         img, amap = session.edit(tokenize([prompt]), tokenize([att]),
                                  strength_alpha=strength, attention_threshold=thr)
         torch.cuda.synchronize()
         check_edit(img, amap, 1)
         expect(before, *per_edit, f"edit {prompt!r}")
-    before = counts()
+        expect_no_prepare(prepares, f"edit {prompt!r}")
+    before, prepares = counts(), k1.prepares
     img, amap = session.edit(tokenize([p[0] for p in PROMPTS[:2]]),
                              tokenize([p[1] for p in PROMPTS[:2]]))
     torch.cuda.synchronize()
     check_edit(img, amap, 2)
     expect(before, *per_edit, "2-prompt sweep")
+    expect_no_prepare(prepares, "2-prompt sweep")
     launches = {"modconv3x3": k1.launches, "modconv1x1": k3.launches}
     emit({"phase": "slice", "step": "main_path", "edits": len(PROMPTS),
           "sweeps": 1, "stored_taps": n_taps, "launches": launches,
@@ -641,7 +670,12 @@ def phase_slice() -> dict:
     rec = {"phase": "slice", "step": "latency", "batch": 1, "edits": len(lat),
            "p50_edit_ms": statistics.median(lat), "edit_ms": lat,
            "p50_stage_ms": {k: statistics.median(v) for k, v in stages.items()},
-           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           # inside that peak: K1's prepared weights, kept per layer
+           "k1_prepared_cache_mib": sum(
+               m._prepared[2].numel() * 4 for m in session.generator.modules()
+               if getattr(m, "_prepared", None) is not None
+               and m._prepared[2] is not None) / 2 ** 20}
     emit(rec)
     return launches, session
 
@@ -738,6 +772,8 @@ def phase_profile(session, card: str, edits: int = 5) -> None:
           "kernel_launches_per_edit": rec["kernel_launches"],
           "stage_device_busy_ms_per_edit": rec["span_device_busy_ms"],
           "categories": rec["categories"], "top_kernels": rec["top_kernels"]})
+    check(rec["kernel_launches"] <= MAX_EDIT_LAUNCHES,
+          f"{rec['kernel_launches']} launches per edit, more than {MAX_EDIT_LAUNCHES}")
 
 
 # ---------------------------------------------------------------------------
@@ -1032,6 +1068,10 @@ def main(argv=None) -> None:
         "modconv1x1": "plain backward only (no kernel launch: the input "
                       "gradient's width is Cin > 32), hand-written formulas "
                       "against autograd through the plain version"}
+    cores = {  # what computes each kernel
+        "modconv3x3": "tensor cores (wgmma), 3xTF32, on csrc/conv3x3_tc.cuh",
+        "conv3x3": "tensor cores (wgmma), 3xTF32, on csrc/conv3x3_tc.cuh",
+        "modconv1x1": "fp32 FMA units"}
     kernels = []
     for name, (src, replaces) in sources.items():
         tot = totals[name]
@@ -1051,13 +1091,19 @@ def main(argv=None) -> None:
             "fma_bound_ms": tot["fma_bound_ms"],
             "library_ms": tot["library_ms"],
             "library_device_ms": tot["library_device_ms"],
+            **({"prepared_ms": tot["prepared_ms"],
+                "prepared_device_ms": tot["prepared_device_ms"]}
+               if name == "modconv3x3" else {}),
+            "core": cores[name],
             "note": "ms, device_ms, plain_ms, bound_ms, library_ms: sums over "
                     + ("the 1024² discriminator's shapes at batch 8"
                        if name == "conv3x3" else "the edit path's shapes at batch 1")
                     + ", one call each; ms, plain_ms and library_ms are eager "
                     "calls back to back (the host's launch cost included), "
                     "device_ms and library_device_ms are the kernel and the "
-                    "library call replayed from a CUDA graph; bound_ms at the "
+                    "library call replayed from a CUDA graph (modconv3x3's "
+                    "prepared_ms and prepared_device_ms: with its weights "
+                    "prepared once, as the edit path calls it); bound_ms at the "
                     "3xTF32 tensor-core rate for modconv3x3 and conv3x3 "
                     "(fma_bound_ms at the fp32 FMA rate), at the fp32 FMA "
                     "rate for modconv1x1; "

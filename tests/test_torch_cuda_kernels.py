@@ -2,11 +2,14 @@
 the main paths do not reach (odd spatial sizes, Cout not a multiple of the
 tile, Cin and Cout not multiples of 4 or of the staged chunk, batch 2 with a
 broadcast noise, every optional epilogue input on and off), K1 and K2 both
-with and without their Cin split across blocks, K2 at odd counts of pixel
-and Cout tiles and at the discriminator's widest K (9·512, where a tensor-
-core sum carried through all of K would drift), K3 at the few-block shapes
-of the edit path, and the backward of the three autograd Functions against
-autograd through the plain versions.
+with and without their K range split across blocks and at the widest K
+(9·512, where a tensor-core sum carried through all of K would drift), K1
+where a block holds several images (4² and 8²), K1 with its weights
+prepared once against the call that prepares them (bitwise) and the
+preparation against its plain twin (bitwise), K2 at odd counts of pixel and
+Cout tiles, K3 at the few-block shapes of the edit path, and the backward
+of the three autograd Functions against autograd through the plain
+versions.
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
 
@@ -26,6 +29,7 @@ import torch
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels.common import tc_prepared_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -54,6 +58,16 @@ def _rel(got, want):
     (2, 9, 9, 8, 4, False, None, False, False),
     (1, 3, 40, 20, 128, True, "shared", False, True),
     (2, 6, 9, 13, 7, True, "batch", True, True),
+    # K = 9·512 without split-K (64² at batch 1) and with it (8² at batch 8)
+    (1, 64, 64, 512, 512, True, "shared", True, True),
+    (8, 8, 8, 512, 512, True, "batch", True, True),
+    # 4² at batch 8: a block holds 8 images, each with its own style and demod
+    (8, 4, 4, 512, 512, True, "batch", True, True),
+    # ragged Cin / Cout where a block holds several images
+    (2, 4, 4, 13, 7, True, "batch", True, True),
+    (2, 4, 4, 513, 512, True, "batch", True, True),
+    # one noise shared by the batch
+    (2, 16, 16, 64, 64, True, "shared", True, True),
 ])
 def test_torch_cuda_modconv3x3(dev, b, h, w, cin, cout, demod, noise, bias, act):
     g = torch.Generator(dev).manual_seed(cin + cout)
@@ -135,6 +149,37 @@ def test_torch_cuda_conv3x3(dev, b, h, w, cin, cout, bias, act):
     assert _rel(got, k2.conv3x3_plain(*args)) <= REL
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,style", [
+    (1, 4, 4, 512, 512, True), (2, 8, 8, 512, 512, True), (1, 64, 64, 512, 512, True),
+    (1, 128, 128, 256, 256, True), (1, 32, 48, 32, 32, True), (2, 6, 9, 13, 7, True),
+    (2, 5, 7, 12, 36, False), (8, 4, 4, 64, 64, False),
+])
+def test_torch_cuda_modconv3x3_prepared(dev, b, h, w, cin, cout, style):
+    """K1 with its weights prepared once (``prepared=``, as the edit path
+    calls it) gives the same bits as the call that prepares them itself; the
+    preparation equals its plain twin bit for bit; without a style the
+    kernel reads a factor of 1."""
+    g = torch.Generator(dev).manual_seed(3 * cin + cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    wt = r(3, 3, cin, cout)
+    n1, np1 = k1.launches, k1.prepares
+    wp = k1.prepare_weight(wt)
+    torch.cuda.synchronize()
+    assert k1.prepares == np1 + 1
+    assert torch.equal(wp.cpu(), tc_prepared_plain(wt))
+    args = (r(b, h, w, cin), r(b, cin) if style else None, wt,
+            r(b, cout).abs() + 0.5, r(b, h, w), r(1), r(cout), True)
+    got = k1.modconv3x3(*args, prepared=wp)
+    want = k1.modconv3x3(*args)
+    torch.cuda.synchronize()
+    assert k1.launches == n1 + 2
+    assert torch.equal(got, want)
+    assert _rel(got, k1.modconv3x3_plain(*args)) <= REL
+
+
 def _check_grads(fn, plain, tensors: dict, flags: dict, dy):
     def grads(f):
         leaves = {k: v.clone().requires_grad_(True) for k, v in tensors.items()}
@@ -145,7 +190,9 @@ def _check_grads(fn, plain, tensors: dict, flags: dict, dy):
 
 
 @pytest.mark.parametrize("b,h,w,cin,cout", [(2, 5, 7, 12, 36), (2, 4, 4, 64, 64),
-                                             (2, 6, 9, 13, 7)])
+                                             (2, 6, 9, 13, 7), (1, 64, 64, 512, 512),
+                                             (8, 8, 8, 512, 512), (8, 4, 4, 512, 512),
+                                             (2, 4, 4, 13, 7), (2, 4, 4, 513, 512)])
 def test_torch_cuda_modconv3x3_backward(dev, b, h, w, cin, cout):
     g = torch.Generator(dev).manual_seed(7 * cin + cout)
 

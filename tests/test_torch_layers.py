@@ -13,6 +13,8 @@ import torch
 
 from where2edit_tpu.nn import layers as jl
 from where2edit_tpu_torch import convert
+from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels.common import tc_prepared_plain
 from where2edit_tpu_torch.nn import layers as tl
 
 from torch_parity import close, np_tree, perturb, t
@@ -120,10 +122,13 @@ def test_torch_equal_linear_and_pixel_norm():
 
 
 @pytest.mark.parametrize("k,up", [(3, False), (1, False), (3, True)])
-def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up):
-    """Inference reuses the kernel-layout weight and demod norm until the
-    weight changes (load_state_dict, an in-place update); with autograd on
-    they are rebuilt each call, so gradients reach the weight."""
+def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up, monkeypatch):
+    """Inference reuses the kernel-layout weight, the demod norm and K1's
+    prepared buffer until the weight changes (load_state_dict, an in-place
+    update); with autograd on they are rebuilt each call, so gradients reach
+    the weight, and K1 prepares its own. The buffer is None on the CPU; with
+    its plain twin standing in for the card's preparation it follows the
+    updates."""
     g = torch.Generator().manual_seed(k + 2 * up)
     m = tl.ModulatedConv2d(8, 12, k, 16, upsample=up, rng=g)
     x, style = torch.randn(2, 6, 6, 8, generator=g), torch.randn(2, 16, generator=g)
@@ -131,6 +136,8 @@ def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up):
         m(x, style)
         first = m.prepared_weight()
         assert m.prepared_weight() is first
+        assert len(first) == 3 and first[2] is None
+    monkeypatch.setattr(k1, "prepare_weight", tc_prepared_plain)
     updates = [lambda: m.load_state_dict({**m.state_dict(),
                                           "weight": torch.randn(m.weight.shape,
                                                                 generator=g)}),
@@ -141,7 +148,13 @@ def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up):
             got, _ = m(x, style)
             assert m.prepared_weight() is not first
             first = m.prepared_weight()
+            if k == 3 and not up:
+                assert torch.equal(first[2], tc_prepared_plain(
+                    m.weight[0].permute(2, 3, 1, 0)))
+            else:
+                assert first[2] is None
         want, _ = m(x, style)  # autograd on: built afresh
+        assert m.prepared_weight()[2] is None
         assert torch.equal(got, want)
     want.square().sum().backward()
     assert m.weight.grad is not None and bool(m.weight.grad.abs().sum() > 0)

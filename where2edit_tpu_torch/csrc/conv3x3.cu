@@ -20,17 +20,22 @@
 
 #include "conv3x3_tc.cuh"
 
+// K2's kernels on the shared core: names of their own, no modulation
+struct conv3x3_k2 {
+  static constexpr bool modulated = false;
+};
+
 // How many ways K2 splits its K range for this shape on a card with `sms`
 // SMs.
 extern "C" int w2e_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                   int sms) {
-  return conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms);
+  return conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms, false);
 }
 
 // fp32 scratch (floats) a call with this shape and split count needs.
 extern "C" long long w2e_conv3x3_workspace(int B, int H, int W, int Cin,
                                            int Cout, int splits) {
-  return conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits);
+  return conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits, false);
 }
 
 // x (B,H,W,Cin), wt (3,3,Cin,Cout), bias (Cout,) or null, out (B,H,W,Cout),
@@ -41,7 +46,8 @@ extern "C" int w2e_conv3x3(const float* x, const float* wt, const float* bias,
                            float* out, float* work, int B, int H, int W,
                            int Cin, int Cout, int splits, int act, float scale,
                            void* stream) {
-  return conv3x3_tc::conv3x3_tc_launch(x, wt, scale, bias, out, work, B, H, W,
-                                       Cin, Cout, splits, act,
-                                       static_cast<cudaStream_t>(stream));
+  const conv3x3_tc::Epilogue epi{nullptr, nullptr, 0, nullptr, bias, act};
+  return conv3x3_tc::conv3x3_tc_launch<conv3x3_k2>(
+      x, nullptr, wt, nullptr, scale, epi, out, work, B, H, W, Cin, Cout, splits,
+      static_cast<cudaStream_t>(stream));
 }

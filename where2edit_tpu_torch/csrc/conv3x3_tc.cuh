@@ -1,10 +1,17 @@
-// The 3x3 convolution core of K2 (conv3x3.cu) on Hopper's tensor cores:
-// fp32 in and out, NHWC, stride 1, zero padding 1, sm_90a only (wgmma).
+// The 3x3 convolution core of K1 (modconv3x3.cu) and K2 (conv3x3.cu) on
+// Hopper's tensor cores: fp32 in and out, NHWC, stride 1, zero padding 1,
+// sm_90a only (wgmma).
 //
-//   out[b,h,w,o] = act( sum_{ky,kx,i} x[b,h+ky-1,w+kx-1,i] * (scale*wt[ky,kx,i,o])
-//                       + bias[o] )
+//   out[b,h,w,o] = act( demod[b,o] * sum_{ky,kx,i} x[b,h+ky-1,w+kx-1,i] * style[b,i]
+//                                                  * (scale*wt[ky,kx,i,o])
+//                       + noise_w * noise[b,h,w] + bias[o] )
 //
-// with act = lrelu(0.2)*sqrt(2) when `act` is set and bias optional.
+// with act = lrelu(0.2)*sqrt(2) when `act` is set. style, demod, noise and
+// bias are optional: a null pointer reads as a factor of 1 or a term of 0.
+// K1 passes the style and demod of a modulated conv, its noise and scale 1;
+// K2 passes the equalised-lr scale and nothing else. Each source names its
+// kernels with a tag type of its own (a profile tells K1 from K2), which
+// also says whether the input is modulated.
 //
 // An implicit GEMM: M = B*H*W output pixels, N = Cout, K = 9*Cin. Bound on
 // the H100: operations, at the tensor cores' rate for fp32-accurate
@@ -38,20 +45,29 @@
 //   descriptor, so each thread reads its fragment's four values of the tap
 //   out of the halo patch (two 8-byte loads: the kernel's K order inside a
 //   chunk puts channels 2t and 2t+1 at fragment columns t and t+4) and
-//   splits them itself. K1's modulation (a per-Cin style factor) would
-//   multiply these values here, before the split; its demod is a per-Cout
-//   factor in the kernel's epilogue, beside the bias.
-// - The weights are prepared once per call by conv3x3_tc_prep: HWIO in,
-//   scaled by the equalised-lr scale (as the plain version scales them),
-//   permuted K-major, split and tiled per (Cout tile, chunk, tap, part), so
-//   a stage is one contiguous copy. Cout is padded to BN and Cin to CK with
-//   zeros, so ragged channel counts (final_conv's 513 inputs, its input
-//   gradient's 513 outputs) need no other masking than at the stores.
+//   splits them itself.
+// - K1's modulation, a per-(image, Cin) style factor, multiplies those
+//   values before the split (after it, the parts would not stay exact in
+//   TF32). The chunk's style rows (NI x 8 values) are staged with it, zero
+//   past B and Cin; each thread reads its two rows' four values once per
+//   chunk, each row from its own image (a block of small images holds
+//   several). demod (per image and Cout), the per-pixel noise and the bias
+//   are the epilogue's, in the plain version's order:
+//   act(acc * demod + noise_w * noise + bias).
+// - The weights are prepared by conv3x3_tc_prep: HWIO in, scaled by
+//   `scale` (as the plain version scales them), permuted K-major, split
+//   and tiled per (Cout tile, chunk, tap, part), so a stage is one
+//   contiguous copy. Cout is padded to BN and Cin to CK with zeros, so
+//   ragged channel counts (final_conv's 513 inputs, its input gradient's
+//   513 outputs) need no other masking than at the stores. A call prepares
+//   them itself, or takes a buffer prepared earlier (K1 at inference, where
+//   a layer's weights stay as they are from call to call).
 // - Where the (pixel tile, Cout tile) grid would not fill the SMs (16^2 and
-//   below at batch 8) the chunks are split across blocks (split-K): each
-//   block writes raw sums to fp32 scratch (splits, B, H, W, Cout) and
-//   conv3x3_tc_reduce sums the splits in a fixed order and applies the
-//   epilogue, so the result does not depend on the order blocks ran in.
+//   below at batch 8, 32^2 and below at batch 1) the chunks are split
+//   across blocks (split-K): each block writes raw sums to fp32 scratch
+//   (splits, B, H, W, Cout) and conv3x3_tc_reduce sums the splits in a
+//   fixed order and applies the epilogue, so the result does not depend on
+//   the order blocks ran in.
 
 #pragma once
 
@@ -214,39 +230,52 @@ __device__ __forceinline__ void mma<128>(float (&d)[64], const uint32_t (&a)[4],
 // kernels
 // ---------------------------------------------------------------------------
 
-// The weights, once per call: wt (3,3,Cin,Cout) HWIO times `scale` into
+// The weights: wt (3,3,Cin,Cout) HWIO times `scale` into
 // wp[n_tile][chunk][tap][part][nb][kh][r][q] (part 0 big, 1 small), the
 // element of output channel n_tile*BN + 8*nb + r and input channel
 // chunk*CK + 2*q + kh: inside a chunk, K position kh*4 + q holds channel
 // 2*q + kh, the order the A fragments are read in. Zeros past Cin and Cout.
+// One thread per (n_tile, chunk, tap, nb, kh, r) writes the four q of both
+// parts as two 16-byte stores. (kernels/common.py::tc_prepared_plain is its
+// plain twin.)
+template <class Kind>
 __global__ void __launch_bounds__(256)
 conv3x3_tc_prep(const float* __restrict__ wt, float scale, float* __restrict__ wp,
-                int Cin, int Cout, int BN, int chunks, long long total) {
-  const long long e = (long long)blockIdx.x * 256 + threadIdx.x;
-  if (e >= total) return;
+                int Cin, int Cout, int BN, int chunks, int total) {
+  // 32-bit index arithmetic (a 64-bit division by a run-time value costs
+  // more than the element's bytes); the host keeps total under 2^31
+  const unsigned e = blockIdx.x * 256u + threadIdx.x;
+  if (e >= static_cast<unsigned>(total)) return;
   // r fastest: neighbouring threads read neighbouring output channels
   const int r = static_cast<int>(e % 8);
-  long long rest = e / 8;
-  const int q = static_cast<int>(rest % 4);
-  rest /= 4;
+  unsigned rest = e / 8;
   const int kh = static_cast<int>(rest % 2);
   rest /= 2;
-  const int nb = static_cast<int>(rest % (BN / 8));
-  rest /= BN / 8;
+  const unsigned nbs = static_cast<unsigned>(BN / 8);
+  const int nb = static_cast<int>(rest % nbs);
+  rest /= nbs;
   const int tap = static_cast<int>(rest % 9);
   rest /= 9;
-  const int chunk = static_cast<int>(rest % chunks);
-  const int nt = static_cast<int>(rest / chunks);
+  const int chunk = static_cast<int>(rest % static_cast<unsigned>(chunks));
+  const int nt = static_cast<int>(rest / static_cast<unsigned>(chunks));
   const int n = nt * BN + nb * 8 + r;
-  const int ci = chunk * CK + 2 * q + kh;
-  const float v = (n < Cout && ci < Cin)
-      ? wt[((size_t)tap * Cin + ci) * Cout + n] * scale : 0.f;
-  uint32_t big, small;
-  split_tf32(v, big, small);
+  float big[4], small[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ci = chunk * CK + 2 * q + kh;
+    const float v = (n < Cout && ci < Cin)
+        ? wt[((size_t)tap * Cin + ci) * Cout + n] * scale : 0.f;
+    uint32_t b, sm;
+    split_tf32(v, b, sm);
+    big[q] = __uint_as_float(b);
+    small[q] = __uint_as_float(sm);
+  }
   const size_t base = (((size_t)nt * chunks + chunk) * 9 + tap) * 2 * BN * CK;
-  const int within = ((nb * 2 + kh) * 8 + r) * 4 + q;
-  wp[base + within] = __uint_as_float(big);
-  wp[base + BN * CK + within] = __uint_as_float(small);
+  const int within = ((nb * 2 + kh) * 8 + r) * 4;
+  *reinterpret_cast<float4*>(wp + base + within) =
+      make_float4(big[0], big[1], big[2], big[3]);
+  *reinterpret_cast<float4*>(wp + base + BN * CK + within) =
+      make_float4(small[0], small[1], small[2], small[3]);
 }
 
 // The block's pixel tile.
@@ -278,24 +307,53 @@ constexpr int kStages = 2;  // of the cp.async ring
 // loads and barriers (the registers then allowed: 64 at BN = 32, 128 at 64)
 __host__ __device__ constexpr int min_blocks(int BN) { return BN == 32 ? 4 : BN == 64 ? 2 : 1; }
 
-__host__ __device__ inline int stage_floats(int BN, int halo) {
-  return (b_floats(BN) + halo * CK + 31) / 32 * 32;  // 128-byte aligned stages
+// a stage: the weights, the halo'd input patch and, when modulated, the
+// chunk's style rows of the block's images; 128-byte aligned
+__host__ __device__ inline int stage_floats(int BN, const Tile& t, bool modulated) {
+  return (b_floats(BN) + t.halo * CK + (modulated ? t.ni * CK : 0) + 31) / 32 * 32;
+}
+
+// The epilogue's operands; a null pointer is a factor of 1 or a term of 0.
+struct Epilogue {
+  const float* demod;        // (B, Cout)
+  const float* noise;        // (B or 1, H, W), image b at b * noise_bstride
+  long long noise_bstride;   // H*W, or 0 for one noise shared by the batch
+  const float* noise_w;      // (1,)
+  const float* bias;         // (Cout,)
+  int act;                   // lrelu(0.2)*sqrt(2)
+};
+
+// act(v * demod + nz + bias) for image b, output channel n; nz is the
+// pixel's noise_w * noise (0 without noise). demod and noise exist only
+// where MOD (K1): K2's epilogue is the bias and the activation alone.
+template <bool MOD>
+__device__ __forceinline__ float finish(float v, const Epilogue e, float nz, int b,
+                                        int n, int Cout) {
+  if (MOD && e.demod != nullptr) v *= e.demod[(size_t)b * Cout + n];
+  if (MOD && e.noise != nullptr) v += nz;
+  if (e.bias != nullptr) v += e.bias[n];
+  if (e.act) v = (v >= 0.f ? v : 0.2f * v) * kSqrt2;
+  return v;
 }
 
 // One block: pixel tile blockIdx.x, Cout tile blockIdx.y, chunk range
-// blockIdx.z. VEC: Cin % 4 == 0 (16-byte copies of the input), else 4-byte.
-template <int BN, bool VEC>
+// blockIdx.z. VEC: Cin % 4 == 0 (16-byte copies of the input and the
+// style), else 4-byte. Kind::modulated: x is multiplied by style (B, Cin),
+// or by 1 where style is null.
+template <int BN, bool VEC, class Kind>
 __global__ void __launch_bounds__(kThreads, min_blocks(BN))
-conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  float* __restrict__ partial, int B, int H, int W, int Cin,
-                  int Cout, Tile tile, int chunks, int chunks_per_split,
-                  int act) {
+conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ style,
+                  const float* __restrict__ wp, Epilogue epi,
+                  float* __restrict__ out, float* __restrict__ partial, int B,
+                  int H, int W, int Cin, int Cout, Tile tile, int chunks,
+                  int chunks_per_split) {
+  constexpr bool MOD = Kind::modulated;
   extern __shared__ __align__(128) float smem[];
   constexpr int BF = b_floats(BN);
   const int halo_w = tile.tw + 2;
   const int halo_img = (tile.th + 2) * halo_w;
-  const int sf = stage_floats(BN, tile.halo);
+  const int sf = stage_floats(BN, tile, MOD);
+  const int style_at = BF + tile.halo * CK;  // the style rows, from a stage's start
 
   const int mt = blockIdx.x;
   const int nt = blockIdx.y;
@@ -313,8 +371,9 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const int row0 = (tid / 128) * 64 + ((tid / 32) % 4) * 16 + g;  // M row of a0
   const int tile_px = tile.th * tile.tw;
 
-  // halo position of tap (0, 0) for the fragment's two rows (row0, row0 + 8)
-  int hpos[2];
+  // halo position of tap (0, 0) for the fragment's two rows (row0, row0 + 8),
+  // and where the row's style pair (channels 2t, 2t + 1) sits in the stage
+  int hpos[2], spos[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int p = row0 + 8 * h;
@@ -322,19 +381,22 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       const int img = p / tile_px;
       const int rem = p % tile_px;
       hpos[h] = img * halo_img + (rem / tile.tw) * halo_w + rem % tile.tw;
+      spos[h] = style_at + img * CK + 2 * t;
     } else {
-      hpos[h] = 0;  // a padding row: reads a valid position, never stored
+      // a padding row: reads valid positions, never stored
+      hpos[h] = 0;
+      spos[h] = style_at + 2 * t;
     }
   }
 
   const float* wtile = wp + (size_t)nt * chunks * BF;
+  constexpr int PER = VEC ? 4 : 1;  // floats per copy
 
   auto load_stage = [&](int chunk, float* st) {
     const float* src = wtile + (size_t)chunk * BF;
     for (int i = tid; i < BF / 4; i += kThreads) cp_async16(st + 4 * i, src + 4 * i, true);
     float* as = st + BF;
     const int c0 = chunk * CK;
-    constexpr int PER = VEC ? 4 : 1;  // floats per copy
     for (int i = tid; i < tile.halo * (CK / PER); i += kThreads) {
       const int k = (i % (CK / PER)) * PER;
       const int pos = i / (CK / PER);
@@ -349,7 +411,32 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       if constexpr (VEC) cp_async16(as + pos * CK + k, s, ok);
       else cp_async4(as + pos * CK + k, s, ok);
     }
+    if constexpr (MOD) {
+      // the style rows of the block's images: zero past B and Cin, where
+      // x is zero too (a read past the array's end could be NaN, 0*NaN)
+      if (style != nullptr) {
+        for (int i = tid; i < tile.ni * (CK / PER); i += kThreads) {
+          const int k = (i % (CK / PER)) * PER;
+          const int img = i / (CK / PER);
+          const int b = b0 + img;
+          const int ci = c0 + k;
+          const bool ok = b < B && ci < Cin;
+          const float* s = ok ? style + (size_t)b * Cin + ci : style;
+          if constexpr (VEC) cp_async16(st + style_at + img * CK + k, s, ok);
+          else cp_async4(st + style_at + img * CK + k, s, ok);
+        }
+      }
+    }
   };
+
+  if constexpr (MOD) {
+    // no style: a factor of 1, written once into both stages (the loop's
+    // first barrier makes it visible)
+    if (style == nullptr) {
+      for (int i = tid; i < kStages * tile.ni * CK; i += kThreads)
+        smem[(i / (tile.ni * CK)) * sf + style_at + i % (tile.ni * CK)] = 1.f;
+    }
+  }
 
   // The tensor cores do not round their fp32 sums to nearest, so a sum
   // carried through all of K drifts with K (measured: ~2.6e-5 of the
@@ -375,11 +462,21 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       load_stage(c + S - 1, smem + ((c + S - 1 - c_begin) % S) * sf);
     cp_async_commit();
     const float* as = st + BF;
+    // the two rows' style for channels 2t (.x) and 2t + 1 (.y), once a chunk
+    float2 s0 = make_float2(1.f, 1.f), s1 = s0;
+    if constexpr (MOD) {
+      s0 = *reinterpret_cast<const float2*>(st + spos[0]);
+      s1 = *reinterpret_cast<const float2*>(st + spos[1]);
+    }
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int off = (tap / 3) * halo_w + tap % 3;
-      const float2 v0 = *reinterpret_cast<const float2*>(as + (hpos[0] + off) * CK + 2 * t);
-      const float2 v1 = *reinterpret_cast<const float2*>(as + (hpos[1] + off) * CK + 2 * t);
+      float2 v0 = *reinterpret_cast<const float2*>(as + (hpos[0] + off) * CK + 2 * t);
+      float2 v1 = *reinterpret_cast<const float2*>(as + (hpos[1] + off) * CK + 2 * t);
+      if constexpr (MOD) {  // modulate before the split
+        v0.x *= s0.x; v0.y *= s0.y;
+        v1.x *= s1.x; v1.y *= s1.y;
+      }
       // fragment a0..a3 = (row0, t), (row0 + 8, t), (row0, t + 4), (row0 + 8, t + 4)
       uint32_t big[4], small[4];
       split_tf32(v0.x, big[0], small[0]);
@@ -406,6 +503,8 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
   const bool pairs = (Cout & 1) == 0;
   float* dst = partial != nullptr
       ? partial + (size_t)split * B * H * W * Cout : out;
+  const bool noisy = MOD && partial == nullptr && epi.noise != nullptr;
+  const float nw = noisy ? *epi.noise_w : 0.f;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int p = row0 + 8 * h;
@@ -417,6 +516,8 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
     const int ww = w0 + rem % tile.tw;
     if (b >= B || hh >= H || ww >= W) continue;
     const size_t o = (((size_t)b * H + hh) * W + ww) * Cout;
+    const float nz = noisy
+        ? nw * epi.noise[(size_t)b * epi.noise_bstride + (size_t)hh * W + ww] : 0.f;
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int n = nt * BN + 8 * j + 2 * t;
@@ -424,11 +525,8 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
       float v[2] = {acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]};
       if (partial == nullptr) {
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          if (n + e >= Cout) continue;
-          if (bias != nullptr) v[e] += bias[n + e];
-          if (act) v[e] = (v[e] >= 0.f ? v[e] : 0.2f * v[e]) * kSqrt2;
-        }
+        for (int e = 0; e < 2; ++e)
+          if (n + e < Cout) v[e] = finish<MOD>(v[e], epi, nz, b, n + e, Cout);
       }
       if (pairs) {
         *reinterpret_cast<float2*>(dst + o + n) = make_float2(v[0], v[1]);
@@ -441,18 +539,21 @@ conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ wp,
 }
 
 // Split-K second pass: one thread per output element sums the splits in
-// order, then applies the bias and the activation.
+// order, then applies the epilogue.
+template <class Kind>
 __global__ void __launch_bounds__(256)
-conv3x3_tc_reduce(const float* __restrict__ partial, int splits,
-                  const float* __restrict__ bias, float* __restrict__ out,
-                  long long n, int Cout, int act) {
+conv3x3_tc_reduce(const float* __restrict__ partial, int splits, Epilogue epi,
+                  float* __restrict__ out, long long n, int HW, int Cout) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   float v = 0.f;
   for (int s = 0; s < splits; ++s) v += partial[s * n + i];
-  if (bias != nullptr) v += bias[i % Cout];
-  if (act) v = (v >= 0.f ? v : 0.2f * v) * kSqrt2;
-  out[i] = v;
+  const long long pix = i / Cout;
+  const int b = static_cast<int>(pix / HW);
+  constexpr bool MOD = Kind::modulated;
+  const float nz = MOD && epi.noise != nullptr
+      ? *epi.noise_w * epi.noise[(size_t)b * epi.noise_bstride + pix % HW] : 0.f;
+  out[i] = finish<MOD>(v, epi, nz, b, static_cast<int>(i % Cout), Cout);
 }
 
 // ---------------------------------------------------------------------------
@@ -461,82 +562,106 @@ conv3x3_tc_reduce(const float* __restrict__ partial, int splits,
 
 inline int tile_n(int Cout) { return Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128; }
 
-inline size_t smem_bytes(int BN, const Tile& t) {
-  return sizeof(float) * kStages * stage_floats(BN, t.halo);
+inline size_t smem_bytes(int BN, const Tile& t, bool modulated) {
+  return sizeof(float) * kStages * stage_floats(BN, t, modulated);
 }
 
 // How many ways to split the chunks for this shape on a card with `sms`
 // SMs: 1 when the (pixel tile, Cout tile) grid fills the SMs, else as many
 // as keep the grid within one wave, each split at least kMinChunks chunks.
-inline int splits_for(int B, int H, int W, int Cin, int Cout, int sms) {
+inline int splits_for(int B, int H, int W, int Cin, int Cout, int sms, bool modulated) {
   const Tile t = make_tile(B, H, W);
   const int BN = tile_n(Cout);
   const int base = t.m_tiles * cdiv(Cout, BN);
   if (base >= sms) return 1;
   const int per_sm = std::max(1, std::min(2048 / kThreads,
-                                          kMaxSmem / (int)(smem_bytes(BN, t) + 1024)));
+      kMaxSmem / (int)(smem_bytes(BN, t, modulated) + 1024)));
   const int chunks = cdiv(Cin, CK);
   const int splits = std::min(per_sm * sms / base, chunks / kMinChunks);
   return splits < 2 ? 1 : cdiv(chunks, cdiv(chunks, splits));
 }
 
-// fp32 scratch the call needs: the prepared weights, then (splits > 1) the
-// split-K partial sums.
-inline long long workspace_floats(int B, int H, int W, int Cin, int Cout, int splits) {
+// floats of the prepared weights of a (Cin, Cout) layer
+inline long long prepared_floats(int Cin, int Cout) {
   const int BN = tile_n(Cout);
-  const long long wp = (long long)cdiv(Cout, BN) * cdiv(Cin, CK) * b_floats(BN);
-  return wp + (splits > 1 ? (long long)splits * B * H * W * Cout : 0);
+  return (long long)cdiv(Cout, BN) * cdiv(Cin, CK) * b_floats(BN);
 }
 
-template <int BN, bool VEC>
-int launch_tiles(const float* x, const float* wp, const float* bias, float* out,
-                 float* partial, int B, int H, int W, int Cin, int Cout,
-                 int splits, int act, cudaStream_t s) {
+// fp32 scratch a call needs: the prepared weights unless the caller passes
+// its own, then (splits > 1) the split-K partial sums.
+inline long long workspace_floats(int B, int H, int W, int Cin, int Cout, int splits,
+                                  bool prepared) {
+  return (prepared ? 0 : prepared_floats(Cin, Cout))
+      + (splits > 1 ? (long long)splits * B * H * W * Cout : 0);
+}
+
+// The weights of a (Cin, Cout) layer into wp (prepared_floats floats).
+template <class Kind>
+int prepare(const float* wt, float scale, float* wp, int Cin, int Cout, cudaStream_t s) {
+  const int BN = tile_n(Cout);
+  const int chunks = cdiv(Cin, CK);
+  const long long n = prepared_floats(Cin, Cout) / 8;  // threads: 4 q x (big, small) each
+  if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  conv3x3_tc_prep<Kind><<<cdiv(n, 256), 256, 0, s>>>(wt, scale, wp, Cin, Cout, BN,
+                                                      chunks, static_cast<int>(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int BN, bool VEC, class Kind>
+int launch_tiles(const float* x, const float* style, const float* wp,
+                 const Epilogue& epi, float* out, float* partial, int B, int H,
+                 int W, int Cin, int Cout, int splits, cudaStream_t s) {
   const Tile t = make_tile(B, H, W);
-  const size_t smem = smem_bytes(BN, t);
+  const size_t smem = smem_bytes(BN, t, Kind::modulated);
   if (smem > (size_t)kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv3x3_tc_kernel<BN, VEC>;
+  auto kernel = conv3x3_tc_kernel<BN, VEC, Kind>;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
   const int chunks = cdiv(Cin, CK);
   const dim3 grid(t.m_tiles, cdiv(Cout, BN), splits);
-  kernel<<<grid, kThreads, smem, s>>>(x, wp, bias, out, splits > 1 ? partial : nullptr,
-                                      B, H, W, Cin, Cout, t, chunks,
-                                      cdiv(chunks, splits), act);
+  kernel<<<grid, kThreads, smem, s>>>(x, style, wp, epi, out,
+                                      splits > 1 ? partial : nullptr, B, H, W,
+                                      Cin, Cout, t, chunks, cdiv(chunks, splits));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The whole convolution: the weight preparation, the tiled kernel and, with
+// The whole convolution: the weight preparation (unless `wp` holds weights
+// prepared earlier from the same wt and scale), the tiled kernel and, with
 // splits > 1 (from splits_for), the reduce pass. `work` is fp32 scratch of
-// workspace_floats(...) floats; x, wt and work 16-byte aligned (checked by
-// the Python wrapper). Returns the launches' cudaGetLastError().
-inline int conv3x3_tc_launch(const float* x, const float* wt, float scale,
-                             const float* bias, float* out, float* work, int B,
-                             int H, int W, int Cin, int Cout, int splits,
-                             int act, cudaStream_t s) {
-  if (splits < 1 || work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+// workspace_floats(..., wp != nullptr) floats (null where that is 0); x,
+// style, wt, wp and work 16-byte aligned (checked by the Python wrappers).
+// Returns the launches' cudaGetLastError().
+template <class Kind>
+int conv3x3_tc_launch(const float* x, const float* style, const float* wt,
+                      const float* wp, float scale, const Epilogue& epi,
+                      float* out, float* work, int B, int H, int W, int Cin,
+                      int Cout, int splits, cudaStream_t s) {
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  float* partial = work;
+  int rc = 0;
+  if (wp == nullptr) {
+    if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    rc = prepare<Kind>(wt, scale, work, Cin, Cout, s);
+    if (rc != 0) return rc;
+    wp = work;
+    partial = work + prepared_floats(Cin, Cout);
+  }
+  if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int BN = tile_n(Cout);
-  const int chunks = cdiv(Cin, CK);
-  const long long prep = (long long)cdiv(Cout, BN) * chunks * 9 * BN * CK;
-  conv3x3_tc_prep<<<cdiv(prep, 256), 256, 0, s>>>(wt, scale, work, Cin, Cout,
-                                                   BN, chunks, prep);
-  int rc = static_cast<int>(cudaGetLastError());
-  if (rc != 0) return rc;
-  float* partial = work + 2 * prep;
   const bool vec = (Cin & 3) == 0;
-#define W2E_TC_CASE(N)                                                         \
-  if (BN == N)                                                                 \
-    rc = vec ? launch_tiles<N, true>(x, work, bias, out, partial, B, H, W,     \
-                                     Cin, Cout, splits, act, s)                \
-             : launch_tiles<N, false>(x, work, bias, out, partial, B, H, W,    \
-                                      Cin, Cout, splits, act, s);
+#define W2E_TC_CASE(N)                                                          \
+  if (BN == N)                                                                  \
+    rc = vec ? launch_tiles<N, true, Kind>(x, style, wp, epi, out, partial, B,  \
+                                           H, W, Cin, Cout, splits, s)          \
+             : launch_tiles<N, false, Kind>(x, style, wp, epi, out, partial, B, \
+                                            H, W, Cin, Cout, splits, s);
   W2E_TC_CASE(32) W2E_TC_CASE(64) W2E_TC_CASE(128)
 #undef W2E_TC_CASE
   if (rc != 0 || splits == 1) return rc;
   const long long n = (long long)B * H * W * Cout;
-  conv3x3_tc_reduce<<<cdiv(n, 256), 256, 0, s>>>(partial, splits, bias, out, n,
-                                                  Cout, act);
+  conv3x3_tc_reduce<Kind><<<cdiv(n, 256), 256, 0, s>>>(partial, splits, epi, out,
+                                                        n, H * W, Cout);
   return static_cast<int>(cudaGetLastError());
 }
 

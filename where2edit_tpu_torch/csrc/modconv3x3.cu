@@ -10,37 +10,66 @@
 //                                  * style[b,i] * wt[ky,kx,i,o]
 //                       + noise_w * noise[b,h,w] + bias[o] )
 //
-// with act = lrelu(0.2)*sqrt(2) when `act` is set; demod, noise and bias
-// are optional (null pointers). The same entry point with style := demod,
-// demod := style and the flipped, transposed weights is the input gradient
-// of the convolution (kernels/modconv3x3.py). The kernel, its bound and its
-// design are in conv3x3_core.cuh, shared with K2.
+// with act = lrelu(0.2)*sqrt(2) when `act` is set; style, demod, noise and
+// bias are optional (null pointers). The same entry point with style :=
+// demod, demod := style and the flipped, transposed weights is the input
+// gradient of the convolution (kernels/modconv3x3.py). Bound on the H100:
+// operations, at the tensor cores' 3xTF32 rate. The kernel is the implicit
+// GEMM of conv3x3_tc.cuh, shared with K2: the style multiplies each input
+// value before its TF32 split, demod and noise ride in the epilogue. The
+// weights are prepared (split into two TF32 parts and tiled) by the call
+// itself, or once by w2e_modconv3x3_prep for a caller that keeps them.
 
-#define W2E_CORE_NS modconv3x3
-#include "conv3x3_core.cuh"
+#include "conv3x3_tc.cuh"
 
-using namespace modconv3x3;
+// K1's kernels on the shared core: names of their own, modulated input
+struct modconv3x3_k1 {
+  static constexpr bool modulated = true;
+};
 
-// How many ways K1 splits Cin for this shape on a card with `sms` SMs.
+// How many ways K1 splits its K range for this shape on a card with `sms`
+// SMs.
 extern "C" int w2e_modconv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                      int sms) {
-  return conv3x3_splits(B, H, W, Cin, Cout, sms);
+  return conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms, true);
 }
 
-// x (B,H,W,Cin), style (B,Cin), wt (3,3,Cin,Cout), demod (B,Cout) or null,
-// noise (B or 1,H,W) or null with batch stride noise_bstride, noise_w (1,),
-// bias (Cout,) or null, out (B,H,W,Cout); with splits > 1 (from
-// w2e_modconv3x3_splits), partial is fp32 scratch of splits*B*H*W*Cout. All
-// pointers 16-byte aligned (checked by the Python wrapper). Returns the
-// launches' cudaGetLastError().
+// fp32 scratch (floats) a call with this shape and split count needs: with
+// `prepared` set the caller passes its weights prepared, and the scratch
+// holds only the split-K partial sums (0 floats without a split).
+extern "C" long long w2e_modconv3x3_workspace(int B, int H, int W, int Cin,
+                                              int Cout, int splits,
+                                              int prepared) {
+  return conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits, prepared != 0);
+}
+
+// The weights wt (3,3,Cin,Cout) prepared into wp, of
+// w2e_modconv3x3_workspace(1, 1, 1, Cin, Cout, 1, 0) floats (the scratch of
+// an unsplit call that prepares its own). Both 16-byte aligned. Returns
+// cudaGetLastError().
+extern "C" int w2e_modconv3x3_prep(const float* wt, float* wp, int Cin, int Cout,
+                                   void* stream) {
+  return conv3x3_tc::prepare<modconv3x3_k1>(wt, 1.f, wp, Cin, Cout,
+                                            static_cast<cudaStream_t>(stream));
+}
+
+// x (B,H,W,Cin), style (B,Cin) or null, wt (3,3,Cin,Cout), wp: wt prepared
+// by w2e_modconv3x3_prep, or null to prepare it in `work`; demod (B,Cout) or
+// null, noise (B or 1,H,W) or null with batch stride noise_bstride, noise_w
+// (1,), bias (Cout,) or null, out (B,H,W,Cout); work:
+// w2e_modconv3x3_workspace(..., wp != null) floats of scratch (null for
+// 0), splits from w2e_modconv3x3_splits. All pointers 16-byte aligned
+// (checked by the Python wrapper). Returns the launches'
+// cudaGetLastError().
 extern "C" int w2e_modconv3x3(const float* x, const float* style,
-                              const float* wt, const float* demod,
-                              const float* noise, long long noise_bstride,
-                              const float* noise_w, const float* bias,
-                              float* out, float* partial, int B, int H, int W,
-                              int Cin, int Cout, int splits, int act,
-                              void* stream) {
-  return conv3x3_launch(x, style, wt, demod, 1.f, noise, noise_bstride,
-                        noise_w, bias, out, partial, B, H, W, Cin, Cout,
-                        splits, act, static_cast<cudaStream_t>(stream));
+                              const float* wt, const float* wp,
+                              const float* demod, const float* noise,
+                              long long noise_bstride, const float* noise_w,
+                              const float* bias, float* out, float* work, int B,
+                              int H, int W, int Cin, int Cout, int splits,
+                              int act, void* stream) {
+  const conv3x3_tc::Epilogue epi{demod, noise, noise_bstride, noise_w, bias, act};
+  return conv3x3_tc::conv3x3_tc_launch<modconv3x3_k1>(
+      x, style, wt, wp, 1.f, epi, out, work, B, H, W, Cin, Cout, splits,
+      static_cast<cudaStream_t>(stream));
 }

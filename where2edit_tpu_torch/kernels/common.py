@@ -184,3 +184,32 @@ def noise_grads(dz: torch.Tensor, noise: torch.Tensor | None,
 def check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
+
+
+def tf32_rna(t: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: add half of the 13 dropped bits to
+    the magnitude, then clear them (the sign bit is apart, so this rounds
+    the magnitude for either sign)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tc_prepared_plain(w: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """Plain twin of the weight preparation of ``csrc/conv3x3_tc.cuh``
+    (``conv3x3_tc_prep``), for the tests: w (3,3,Cin,Cout)·scale split into
+    big = tf32(v) and small = tf32(v - big), flat in the kernel's layout
+    [Cout tile][chunk][tap][part][nb][kh][r][q] (part 0 big, 1 small) for
+    output channel tile·BN + 8·nb + r and input channel chunk·8 + 2·q + kh,
+    zeros past Cin and Cout. BN is 32, 64 or 128 by Cout."""
+    cin, cout = w.shape[2], w.shape[3]
+    bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    chunks, tiles = -(-cin // 8), -(-cout // bn)
+    v = torch.zeros(9, chunks * 8, tiles * bn, dtype=torch.float32)
+    v[:, :cin, :cout] = (w.float().cpu() * scale).reshape(9, cin, cout)
+    big = tf32_rna(v)
+    parts = torch.stack([big, tf32_rna(v - big)])  # (part, tap, ci, n)
+    # ci = chunk·8 + 2q + kh, n = tile·bn + 8·nb + r
+    parts = parts.reshape(2, 9, chunks, 4, 2, tiles, bn // 8, 8)
+    # (part, tap, chunk, q, kh, tile, nb, r) -> (tile, chunk, tap, part, nb, kh, r, q)
+    return parts.permute(5, 2, 1, 0, 6, 4, 7, 3).reshape(-1)

@@ -1,15 +1,22 @@
 """K1: modulated 3x3 conv + demod + noise + bias + lrelu, one kernel.
 
 Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_mod_fused`` (body
-``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on the FMA core
-``csrc/conv3x3_core.cuh`` (K2 shared it until it moved to the tensor
-cores). Bound on the H100: fp32 operations (~19.3
-GFLOP per layer from 64² up against at most ~270 MB); the kernel stages the
-style-modulated input tile and the weights in shared memory and accumulates
-a register tile per thread with FMAs, applying the whole epilogue before
-the single store. Where the grid alone would not fill the SMs (4² to 32²) it
-splits Cin across blocks into an fp32 scratch that a second pass sums before
-the epilogue (see the core's header).
+``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on ``csrc/conv3x3_tc.cuh``,
+the core K2 runs on: an implicit GEMM on the tensor cores (``wgmma``) in
+3xTF32, each fp32 operand split into two TF32 parts and each product taken
+as three TF32 products, which keeps fp32 accuracy. The style multiplies each
+input value before its split; demod, noise, bias and the activation are the
+epilogue's, before the single store. Bound on the H100: operations, at the
+3xTF32 rate (495/3 TFLOP/s; ~19.3 GFLOP per layer from 64² up at batch 1
+against at most ~270 MB). Where the grid alone would not fill the SMs (4²
+to 32² at batch 1) the K range is split across blocks into an fp32 scratch
+that a second pass sums before the epilogue (see the core's header).
+
+The kernel reads its weights split and tiled. A call prepares them itself,
+or takes ``prepared``, the buffer ``prepare_weight`` made from the same
+``w`` (``nn/layers.py::ModulatedConv2d`` keeps one per weight version at
+inference). ``tc_prepared_plain`` in ``kernels/common.py`` is the layout's
+plain twin.
 
 ``modconv3x3`` is a ``torch.autograd.Function`` whose forward dispatches on
 the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
@@ -20,19 +27,22 @@ length penalty take a gradient of a gradient):
 - the input gradient is K1 itself, launched through the same Function:
   ``dx = s ⊙ conv3x3(dz·demod, flip(w)ᵀ)`` is ``modconv3x3`` with style :=
   demod, demod := s and the spatially flipped weight with Cin and Cout
-  swapped (dz = dy·lrelu'(·), the epilogue dropped);
+  swapped (dz = dy·lrelu'(·), the epilogue dropped; its weights prepared
+  per call);
 - the weight, style and demod gradients are plain PyTorch, all three from
   one per-sample weight gradient ``P[b] = Σ_pixels x̃[b]ᵀ dz[b]`` (x̃ the
   zero-padded 3x3 neighbourhoods): ``dw = Σ_b s⊗demod·P``,
   ``ds = Σ w·demod·P``, ``ddemod = Σ w·s·P``;
 - noise, noise gain and bias gradients are sums of dz.
 
-``launches`` counts kernel launches, forward and backward alike.
+``launches`` counts convolution launches, forward and backward alike;
+``prepares`` counts ``prepare_weight``'s launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +50,8 @@ import torch.nn.functional as F
 from where2edit_tpu_torch.kernels.common import (
     check_cuda_tensor,
     check_launch,
-    lrelu_grad,
     load,
+    lrelu_grad,
     noise_grads,
     plain_epilogue,
     ptr,
@@ -49,8 +59,9 @@ from where2edit_tpu_torch.kernels.common import (
 )
 
 launches = 0
+prepares = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
     + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
@@ -67,8 +78,47 @@ def modconv3x3_plain(x, style, w, demod=None, noise=None, noise_weight=None,
     return plain_epilogue(y, noise, noise_weight, bias, act)
 
 
-def _launch(x, style, w, demod, noise, noise_weight, bias, act):
-    """The kernel on CUDA tensors, same contract as ``modconv3x3_plain``."""
+@functools.lru_cache(maxsize=None)
+def workspace_floats(b, h, wd, cin, cout, splits, prepared) -> int:
+    """fp32 scratch one call needs: the prepared weights unless the caller
+    passes them (``prepared``), then, with splits > 1, the split-K partial
+    sums."""
+    return load("modconv3x3", "w2e_modconv3x3_workspace", [ctypes.c_int] * 7,
+                ctypes.c_longlong)(b, h, wd, cin, cout, splits, int(prepared))
+
+
+def prepared_floats(cin, cout) -> int:
+    """Floats of a (Cin, Cout) layer's prepared weights: the scratch of an
+    unsplit call that prepares its own."""
+    return workspace_floats(1, 1, 1, cin, cout, 1, False)
+
+
+def prepare_weight(w):
+    """w (3,3,Cin,Cout) split into TF32 parts and tiled as the kernel reads
+    it, for ``modconv3x3(..., prepared=)``: on a CUDA tensor one launch into
+    a flat fp32 buffer; None for a CPU tensor, whose plain version needs
+    none."""
+    if w.device.type == "cpu":
+        return None
+    if w.device.type != "cuda":
+        raise ValueError(f"modconv3x3: unsupported device {w.device}")
+    cin, cout = w.shape[2], w.shape[3]
+    check_cuda_tensor("w", w, (3, 3, cin, cout), w.device)
+    wp = torch.empty(prepared_floats(cin, cout), device=w.device,
+                     dtype=torch.float32)
+    fn = load("modconv3x3", "w2e_modconv3x3_prep",
+              [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    rc = fn(ptr(w), ptr(wp), cin, cout,
+            torch.cuda.current_stream(w.device).cuda_stream)
+    check_launch("modconv3x3 prep", rc)
+    global prepares
+    prepares += 1
+    return wp
+
+
+def _launch(x, style, w, demod, noise, noise_weight, bias, act, prepared):
+    """The kernel on CUDA tensors, same contract as ``modconv3x3_plain``;
+    ``prepared`` is ``prepare_weight(w)`` or None."""
     b, h, wd, cin = x.shape
     cout = w.shape[3]
     dev = x.device
@@ -76,6 +126,8 @@ def _launch(x, style, w, demod, noise, noise_weight, bias, act):
     if style is not None:
         check_cuda_tensor("style", style, (b, cin), dev)
     check_cuda_tensor("w", w, (3, 3, cin, cout), dev)
+    if prepared is not None:
+        check_cuda_tensor("prepared", prepared, (prepared_floats(cin, cout),), dev)
     if demod is not None:
         check_cuda_tensor("demod", demod, (b, cout), dev)
     noise_bstride = 0
@@ -90,13 +142,14 @@ def _launch(x, style, w, demod, noise, noise_weight, bias, act):
         check_cuda_tensor("bias", bias, (cout,), dev)
     out = torch.empty((b, h, wd, cout), device=dev, dtype=torch.float32)
     splits = split_count("modconv3x3", b, h, wd, cin, cout, dev.index)
-    partial = (torch.empty((splits, b, h, wd, cout), device=dev,
-                           dtype=torch.float32) if splits > 1 else None)
+    n_work = workspace_floats(b, h, wd, cin, cout, splits, prepared is not None)
+    work = (torch.empty(n_work, device=dev, dtype=torch.float32)
+            if n_work else None)
     fn = load("modconv3x3", "w2e_modconv3x3", _ARGTYPES)
-    rc = fn(ptr(x), ptr(style), ptr(w), ptr(demod), ptr(noise), noise_bstride,
-            ptr(noise_weight) if noise is not None else None, ptr(bias),
-            ptr(out), ptr(partial), b, h, wd, cin, cout, splits, int(act),
-            torch.cuda.current_stream(dev).cuda_stream)
+    rc = fn(ptr(x), ptr(style), ptr(w), ptr(prepared), ptr(demod), ptr(noise),
+            noise_bstride, ptr(noise_weight) if noise is not None else None,
+            ptr(bias), ptr(out), ptr(work), b, h, wd, cin, cout, splits,
+            int(act), torch.cuda.current_stream(dev).cuda_stream)
     check_launch("modconv3x3", rc)
     global launches
     launches += 1
@@ -117,11 +170,13 @@ def _per_sample_wgrad(x, dz):
 
 class _ModConv3x3(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, style, w, demod, noise, noise_weight, bias, act):
+    def forward(ctx, x, style, w, demod, noise, noise_weight, bias, act,
+                prepared):
         if x.device.type == "cpu":
             y = modconv3x3_plain(x, style, w, demod, noise, noise_weight, bias, act)
         elif x.device.type == "cuda":
-            y = _launch(x, style, w, demod, noise, noise_weight, bias, act)
+            y = _launch(x, style, w, demod, noise, noise_weight, bias, act,
+                        prepared)
         else:
             raise ValueError(f"modconv3x3: unsupported device {x.device}")
         ctx.act = act
@@ -132,7 +187,7 @@ class _ModConv3x3(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, style, w, demod, noise, noise_weight, y = ctx.saved_tensors
-        need_x, need_s, need_w, need_d, need_n, need_nw, need_b, _ = \
+        need_x, need_s, need_w, need_d, need_n, need_nw, need_b, _, _ = \
             ctx.needs_input_grad
         dz = (lrelu_grad(dy, y) if ctx.act else dy).contiguous()
         dx = ds = dw = dd = None
@@ -151,11 +206,14 @@ class _ModConv3x3(torch.autograd.Function):
                 dd = (ps * w).sum((1, 2, 3))
         dn, dnw = noise_grads(dz, noise, noise_weight, need_n, need_nw)
         db = dz.sum((0, 1, 2)) if need_b else None
-        return dx, ds, dw, dd, dn, dnw, db, None
+        return dx, ds, dw, dd, dn, dnw, db, None, None
 
 
 def modconv3x3(x, style, w, demod=None, noise=None, noise_weight=None,
-               bias=None, act=False):
+               bias=None, act=False, prepared=None):
     """Same contract as ``modconv3x3_plain``, differentiable (twice and
-    more) in every tensor argument."""
-    return _ModConv3x3.apply(x, style, w, demod, noise, noise_weight, bias, act)
+    more) in every tensor argument but ``prepared``: ``prepare_weight(w)``,
+    which a CUDA call reads in place of preparing ``w`` itself (the plain
+    version ignores it)."""
+    return _ModConv3x3.apply(x, style, w, demod, noise, noise_weight, bias, act,
+                             prepared)

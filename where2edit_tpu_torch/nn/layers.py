@@ -218,16 +218,24 @@ class ModulatedConv2d(nn.Module):
         return wk, w2
 
     def prepared_weight(self):
-        """``_prepare`` of the current weight, computed once per weight
-        version and device (fixed at inference, so not redone each forward);
-        recomputed on every call when autograd needs a graph through it."""
+        """(``_prepare`` of the current weight, K1's prepared buffer or
+        None), computed once per weight version and device (fixed at
+        inference, so not redone each forward); recomputed on every call
+        when autograd needs a graph through it, and then without K1's
+        buffer (the kernel prepares its weights per call). The buffer
+        (``k1.prepare_weight``: the weights split and tiled for the tensor
+        cores, ~2·9·Cin·Cout floats) exists for a non-upsampling 3x3 conv
+        on CUDA; it is None on the CPU."""
         weight = self.weight
         if torch.is_grad_enabled() and weight.requires_grad:
-            return self._prepare(weight[0])
+            return (*self._prepare(weight[0]), None)
         key = (weight._version, weight.device, weight.data_ptr())
         if key != self._prepared_key:
             with torch.no_grad():
-                self._prepared = self._prepare(weight[0])
+                wk, w2 = self._prepare(weight[0])
+                wp = (k1.prepare_weight(wk)
+                      if self.kernel_size == 3 and not self.upsample else None)
+                self._prepared = (wk, w2, wp)
             self._prepared_key = key
         return self._prepared
 
@@ -239,7 +247,7 @@ class ModulatedConv2d(nn.Module):
         b = x.shape[0]
         s = (style.reshape(b, self.in_channel) if input_is_stylespace
              else self.modulation(style))
-        wk, w2 = self.prepared_weight()
+        wk, w2, wp = self.prepared_weight()
         demod = None if w2 is None else torch.rsqrt(s.square() @ w2.t() + 1e-8)
         style_eff = (self.scale * s).contiguous()
 
@@ -260,7 +268,7 @@ class ModulatedConv2d(nn.Module):
             if residual is not None:
                 raise ValueError("the 3x3 conv takes no residual")
             out = k1.modconv3x3(x, style_eff, wk, demod, nz, noise_weight,
-                                bias, act)
+                                bias, act, prepared=wp)
             return out, s
         p = h * wd
         nz = None if noise is None else noise.reshape(noise.shape[0], p)
