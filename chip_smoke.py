@@ -50,6 +50,26 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    kernel; more than ``MAX_EDIT_LAUNCHES`` launches per edit fail.
 7. whole   — the same seeded session at 256² on the card (kernels) and on
    the CPU (plain versions), from the same W+ and prompts.
+7a. invert — the real-photo path at full width: ``Encoder4Editing`` on the
+   IR-SE50 trunk (stylegan_size 1024, 18 W+ rows, seeded random weights,
+   1-D ``latent_avg`` = the generator's mean latent), saved as a
+   reference-layout checkpoint and loaded through ``demo/app.py::load_psp``;
+   8 of phase 5's seeded 1024² faces, face-pooled to 256², stand in for
+   photos. With the launch counters set to 0 just before: the inversion
+   (W+ (8, 18, 512), finite; no port kernel), ``load_latent`` of the first
+   face and one edit (phase 5's counts, no K1 weight preparation), one
+   ``PSp.__call__`` (a finite 256² image), and ``cli/edit.main`` with
+   ``--latent`` (a 2-face .npy bank, 2 prompts) and ``--celeb "Celeb 1"``
+   (one row per face and prompt). Then, fenced: the p50 of ``psp.encode`` at
+   batch 1 (12 calls) and ms per image at batch 8, the stage split of a
+   real-photo edit (invert, capture, text, mapper, synthesis), peak memory;
+   and 5 inversions under ``torch.profiler`` (device busy, idle share,
+   launches, categories) beside the fp32 FMA bound of the encoder's FLOP,
+   counted from its convs and linears by forward hooks.
+7b. invert_whole — that encoder at 256² batch 1 on the card and on the CPU
+   from the same checkpoint and input (W+ max |Δ| / max |CPU| <= 1e-4); then
+   the whole real-photo path at 256² generator size (e4e with 14 rows ->
+   ``load_latent`` -> one edit), card against CPU, at phase 7's tolerances.
 8. train   — adversarial training at full width through
    ``cli/train_stylegan.main``: 1024², channel_multiplier 2, batch 8, 5
    iterations from seed 0 (iteration 0 runs R1 and path length, iteration
@@ -76,6 +96,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -87,8 +108,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from where2edit_tpu_torch.cli import edit as edit_cli
 from where2edit_tpu_torch.cli import train_stylegan
-from where2edit_tpu_torch.demo.app import build_session
+from where2edit_tpu_torch.demo.app import build_argparser as app_argparser
+from where2edit_tpu_torch.demo.app import build_session, load_psp
 from where2edit_tpu_torch.editing.attention_mappers import (
     attention_tables,
     tap_resolution,
@@ -98,7 +121,11 @@ from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
+from where2edit_tpu_torch.models.encoders import Encoder4Editing
+from where2edit_tpu_torch.models.psp import PSp
 from where2edit_tpu_torch.models.stylegan2 import channel_table
+from where2edit_tpu_torch.nn.layers import EqualLinear
+from where2edit_tpu_torch.ops.interpolate import adaptive_avg_pool
 from where2edit_tpu_torch.train.gan_trainer import Draws, GANTrainConfig, GANTrainer
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -117,6 +144,10 @@ KERNEL_REL_TOL = 1e-4
 # sigmoid pooled over clusters, 1e-4 absolute.
 WHOLE_IMAGE_REL_TOL = 1e-3
 WHOLE_MAP_ABS_TOL = 1e-4
+# e4e W+, card against CPU, max |Δ| / max |CPU|: fp32 both sides (cuDNN
+# without TF32), 50 residual blocks and up to 6 stride-2 convs summed in
+# another order.
+INVERT_REL_TOL = 1e-4
 # Backward, kernel Function against autograd through the plain version, per
 # input gradient, max |Δ| / max |plain|: fp32 both sides, but the weight,
 # style and demod gradients are sums over B·H·W (up to 8.4M) products taken
@@ -692,8 +723,10 @@ CATEGORIES = (
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
     ("cuDNN weight gradients", ("wgrad",)),
     ("cuDNN transposed conv (up-conv) and input gradients", ("dgrad",)),
+    ("BatchNorm (running statistics)", ("batch_norm", "bn_fw")),
     ("cuDNN other", ("cudnn", "fprop", "implicit_convolve")),
     ("GEMM / GEMV", ("gemm", "gemv")),
+    ("bilinear resize (FPN merge)", ("upsample_bilinear",)),
     ("elementwise / reduce / copy", ("elementwise", "reduce", "copy", "cat",
                                      "index", "layer_norm", "softmax")),
 )
@@ -780,16 +813,22 @@ def phase_profile(session, card: str, edits: int = 5) -> None:
 # phase 7: whole path, card against CPU at 256²
 # ---------------------------------------------------------------------------
 
-def phase_whole() -> None:
-    size = 256
+def whole_sessions(size: int) -> tuple:
+    """The seeded session at ``size`` on the CPU and on the card, with the
+    same non-zero noise gains on both, so the fused noise path counts."""
     cpu = build_session(size, ATTENTION_LAYER, ATTENTION_LAYER, seed=0, device="cpu")
     gpu = build_session(size, ATTENTION_LAYER, ATTENTION_LAYER, seed=0, device="cuda")
-    # the same non-zero noise gains on both, so the fused noise path counts
     for sess in (cpu, gpu):
         g = torch.Generator().manual_seed(1)
         for name, p in sess.generator.named_parameters():
             if name.endswith("noise.weight"):
                 p.data.copy_(0.1 * torch.randn(1, generator=g))
+    return cpu, gpu
+
+
+def phase_whole() -> None:
+    size = 256
+    cpu, gpu = whole_sessions(size)
     wplus = cpu.sample_wplus(7)
     n = (k1.launches, k3.launches)
     cpu.load_latent(wplus)
@@ -813,6 +852,243 @@ def phase_whole() -> None:
     check(cap_rel <= WHOLE_IMAGE_REL_TOL and img_rel <= WHOLE_IMAGE_REL_TOL,
           f"256² image card vs CPU: rel {cap_rel}, {img_rel}")
     check(map_err <= WHOLE_MAP_ABS_TOL, f"256² map card vs CPU: {map_err}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7a-7b: real-photo editing, e4e inversion at full width
+# ---------------------------------------------------------------------------
+
+INVERT_STAGES = ("invert", "capture") + STAGES
+
+
+def e4e_checkpoint(generator, stylegan_size: int, seed: int) -> dict:
+    """A reference-layout e4e checkpoint: a seeded random
+    ``Encoder4Editing`` (drawn on the CPU), ``generator``'s weights as the
+    decoder, and its mean latent, 1-D, as ``latent_avg``."""
+    encoder = Encoder4Editing(stylegan_size=stylegan_size,
+                              rng=torch.Generator().manual_seed(seed))
+    state = {f"encoder.{k}": v for k, v in encoder.state_dict().items()}
+    state.update({f"decoder.{k}": v.cpu() for k, v in generator.state_dict().items()})
+    rng = torch.Generator(generator.device).manual_seed(0)
+    with torch.no_grad():
+        avg = generator.mean_latent(4096, rng)[0].cpu()
+    return {"state_dict": state, "latent_avg": avg}
+
+
+def encoder_flops(encoder, x) -> int:
+    """FLOP of one forward at ``x``'s shape: 2 · multiply-adds of every
+    conv and linear, counted by forward hooks (what the encoder really runs,
+    e4e's gating included)."""
+    total = 0
+
+    def conv(m, _, out):
+        nonlocal total
+        total += 2 * out.numel() * m.in_channels // m.groups * math.prod(m.kernel_size)
+
+    def linear(m, inp, _):
+        nonlocal total
+        total += 2 * inp[0].numel() * m.weight.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, torch.nn.Conv2d) else linear)
+             for m in encoder.modules() if isinstance(m, (torch.nn.Conv2d, EqualLinear))]
+    with torch.no_grad():
+        encoder(x)
+    for h in hooks:
+        h.remove()
+    return total
+
+
+def phase_invert(session, card: str) -> tuple:
+    """Returns ({kernel: launches} of the main path, the card's PSp, its
+    checkpoint, the batch-1 input)."""
+    gen = session.generator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ckpt = e4e_checkpoint(gen, SIZE, seed=2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "e4e.pt")
+        torch.save(ckpt, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        psp = load_psp(app_argparser().parse_args([
+            "--e4e_ckpt", path, "--stylegan_size", str(SIZE), "--device", "cuda"]))
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in psp.encoder.parameters())
+    # 8 seeded faces at 1024², face-pooled to the encoder's 256², stand in for photos
+    with torch.no_grad():
+        faces = gen([session.sample_wplus(11, batch=8)], input_is_latent=True,
+                    randomize_noise=False).image
+    x8 = adaptive_avg_pool(faces, 256).clamp(-1.0, 1.0)
+    x1 = x8[:1].contiguous()
+    del faces
+
+    def counts3():
+        return k1.launches, k2.launches, k3.launches
+
+    def expect(before, d1, d3, what):
+        got = tuple(a - b for a, b in zip(counts3(), before))
+        check(got == (d1, 0, d3), f"{what}: launches (K1, K2, K3) +{got}, "
+                                  f"expected +({d1}, 0, {d3})")
+
+    per_pass = 1 + len(gen.to_rgbs)
+    mapper_convs = len(session.mapper.layer_num) + 2
+    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
+    k1.launches = k2.launches = k3.launches = 0
+    # --- the main path: invert, capture, edit; PSp.__call__; the CLI ---
+    before = counts3()
+    w8 = psp.encode(x8)
+    torch.cuda.synchronize()
+    check(tuple(w8.shape) == (8, gen.n_latent, 512), f"W+ shape {tuple(w8.shape)}")
+    check(bool(torch.isfinite(w8).all()), "W+ is finite")
+    expect(before, 0, 0, "psp.encode (cuDNN, no port kernel)")
+    before, prepares = counts3(), k1.prepares
+    img = session.load_latent(w8[:1])
+    torch.cuda.synchronize()
+    check(tuple(img.shape) == (1, SIZE, SIZE, 3) and bool(torch.isfinite(img).all()),
+          "captured image of the inverted face")
+    expect(before, per_pass, per_pass, "load_latent of the inverted face")
+    before = counts3()
+    img, amap = session.edit(toks, att)
+    torch.cuda.synchronize()
+    check_edit(img, amap, 1)
+    expect(before, per_pass, per_pass + mapper_convs, "edit of the inverted face")
+    check(k1.prepares == prepares, "capture and edit prepared no K1 weights")
+    before = counts3()
+    out = psp(x1)
+    torch.cuda.synchronize()
+    check(tuple(out.shape) == (1, 256, 256, 3) and bool(torch.isfinite(out).all()),
+          f"PSp.__call__ image {tuple(out.shape)}")
+    expect(before, per_pass, per_pass, "PSp.__call__ (its decoder's synthesis)")
+    cli_rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        bank = os.path.join(tmp, "bank.npy")
+        np.save(bank, w8[:2].cpu().numpy())
+        common_args = ["--stylegan_size", str(SIZE), "--device", "cuda",
+                       "--output_dir", os.path.join(tmp, "out"), "--text"]
+        texts = [p[0] for p in PROMPTS[:2]]
+        for name, source, n_faces in (("latent", ["--latent", bank], 2),
+                                      ("celeb", ["--celeb", "Celeb 1"], 1)):
+            n_texts = len(texts) if name == "latent" else 1
+            before = counts3()
+            rows = edit_cli.main([*source, *common_args, *texts[:n_texts]])
+            torch.cuda.synchronize()
+            check([(r["text"], r["face"]) for r in rows]
+                  == [(t, f) for t in texts[:n_texts] for f in range(n_faces)],
+                  f"cli --{name}: rows {[(r['text'], r['face']) for r in rows]}")
+            expect(before, per_pass * (1 + n_texts),
+                   per_pass * (1 + n_texts) + mapper_convs * n_texts, f"cli --{name}")
+            cli_rows[name] = len(rows)
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    emit({"phase": "invert", "step": "main_path", "card": card,
+          "encoder": "Encoder4Editing, IR-SE50", "stylegan_size": SIZE,
+          "n_latent": gen.n_latent, "encoder_params": n_params,
+          "ckpt_save_s": save_s, "load_psp_s": load_s, "batch": 8,
+          "launches": launches, "cli_rows": cli_rows})
+
+    # --- latency: batch 1 and 8, then the stage split of a real-photo edit ---
+    def fenced_ms(fn, reps):
+        ms = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return ms
+
+    b1 = fenced_ms(lambda: psp.encode(x1), 12)
+    b8 = fenced_ms(lambda: psp.encode(x8), 5)
+    stages = defaultdict(list)
+
+    @contextlib.contextmanager
+    def fenced(stage):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        stages[stage].append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(10):
+        with fenced("invert"):
+            w1 = psp.encode(x1)
+        with fenced("capture"):
+            session.load_latent(w1)
+        staged_edit(session, toks, att, fenced)
+    flops = encoder_flops(psp.encoder, x1)
+    nbytes = 4 * (n_params + x1.numel() + gen.n_latent * 512)
+    bound_ms, bound_by = bound(nbytes, flops)
+    emit({"phase": "invert", "step": "latency", "card": card,
+          "p50_encode_ms_batch1": statistics.median(b1), "encode_ms_batch1": b1,
+          "ms_per_image_batch8": statistics.median(b8) / 8, "encode_ms_batch8": b8,
+          "p50_stage_ms": {k: statistics.median(stages[k]) for k in INVERT_STAGES},
+          "p50_real_photo_edit_ms": sum(statistics.median(stages[k])
+                                        for k in INVERT_STAGES),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "encoder_flop_per_image": flops, "encoder_bytes": nbytes,
+          "fp32_bound_ms": bound_ms, "bound_by": bound_by})
+
+    # --- where the time of an inversion goes ---
+    rec = device_profile(lambda span: psp.encode(x1), (), 5)
+    emit({"phase": "invert_profile", "card": card, "batch": 1, "inversions": 5,
+          "wall_ms_per_inversion": rec["wall_ms"],
+          "device_busy_ms_per_inversion": rec["device_busy_ms"],
+          "device_idle_share": rec["device_idle_share"],
+          "kernel_launches_per_inversion": rec["kernel_launches"],
+          "fp32_bound_ms": bound_ms, "bound_share_of_busy": bound_ms / rec["device_busy_ms"],
+          "categories": rec["categories"], "top_kernels": rec["top_kernels"]})
+    return launches, psp, ckpt, x1
+
+
+def phase_invert_whole(psp, ckpt: dict, x1) -> None:
+    """The full-width encoder on the card and the CPU from one checkpoint
+    and input; then e4e (14 rows) -> capture -> edit at 256², card against
+    CPU."""
+    cpu_psp = PSp.from_state_dict(ckpt, stylegan_size=SIZE, device="cpu")
+    with torch.no_grad():
+        w_c = cpu_psp.encoder(x1.cpu())
+        w_g = psp.encoder(x1).cpu()
+    w_err, w_rel = rel_err(w_g, w_c)
+    rec = {"phase": "invert_whole", "stylegan_size": SIZE, "wplus_shape": list(w_c.shape),
+           "wplus_max_abs_err": w_err, "wplus_rel_err": w_rel, "wplus_rel_tol": INVERT_REL_TOL}
+    del cpu_psp
+    check(w_rel <= INVERT_REL_TOL, f"e4e W+ card vs CPU: rel {w_rel}")
+
+    size = 256
+    cpu, gpu = whole_sessions(size)
+    small = e4e_checkpoint(cpu.generator, size, seed=3)
+    psp_c = PSp.from_state_dict(small, stylegan_size=size, device="cpu")
+    psp_g = PSp.from_state_dict(small, stylegan_size=size, device="cuda")
+    x = cpu.load_synthetic(5).clamp(-1.0, 1.0)  # a 256² face as the photo
+    n = (k1.launches, k3.launches)
+    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
+    w_c, w_g = psp_c.encode(x), psp_g.encode(x.cuda())
+    cpu.load_latent(w_c)
+    gpu.load_latent(w_g)
+    img_c, map_c = cpu.edit(toks, att, strength_alpha=0.2)
+    img_g, map_g = gpu.edit(toks, att, strength_alpha=0.2)
+    torch.cuda.synchronize()
+    per_pass = 1 + len(gpu.generator.to_rgbs)
+    mapper_convs = len(gpu.mapper.layer_num) + 2
+    check((k1.launches - n[0], k3.launches - n[1])
+          == (2 * per_pass, 2 * per_pass + mapper_convs),
+          "the card's 256² real-photo path ran on the kernels")
+    small_rel = rel_err(w_g.cpu(), w_c)[1]
+    cap_rel = rel_err(gpu.image.cpu(), cpu.image)[1]
+    img_err, img_rel = rel_err(img_g.cpu(), img_c)
+    map_err = float((map_g.cpu() - map_c).abs().max())
+    rec.update({"path_size": size, "path_n_latent": int(w_c.shape[1]),
+                "path_wplus_rel_err": small_rel, "path_capture_rel_err": cap_rel,
+                "path_image_max_abs_err": img_err, "path_image_rel_err": img_rel,
+                "path_map_max_abs_err": map_err, "image_rel_tol": WHOLE_IMAGE_REL_TOL,
+                "map_abs_tol": WHOLE_MAP_ABS_TOL})
+    emit(rec)
+    check(small_rel <= INVERT_REL_TOL, f"256² e4e W+ card vs CPU: rel {small_rel}")
+    check(cap_rel <= WHOLE_IMAGE_REL_TOL and img_rel <= WHOLE_IMAGE_REL_TOL,
+          f"256² real-photo image card vs CPU: rel {cap_rel}, {img_rel}")
+    check(map_err <= WHOLE_MAP_ABS_TOL, f"256² real-photo map card vs CPU: {map_err}")
 
 
 # ---------------------------------------------------------------------------
@@ -1045,8 +1321,11 @@ def main(argv=None) -> None:
         train_fwd_err, backward_err = phase_backward()
         edit_launches, session = phase_slice()
         phase_profile(session, card)
-        del session
         phase_whole()
+        invert_launches, psp, ckpt, x1 = phase_invert(session, card)
+        del session
+        phase_invert_whole(psp, ckpt, x1)
+        del psp, ckpt
         train_launches_run, backward_launches, trainer = phase_train(card)
         phase_train_profile(trainer, card)
         del trainer
@@ -1075,7 +1354,8 @@ def main(argv=None) -> None:
     kernels = []
     for name, (src, replaces) in sources.items():
         tot = totals[name]
-        by_path = {"edit": edit_launches.get(name, 0), "train": train_launches_run[name]}
+        by_path = {"edit": edit_launches.get(name, 0), "invert": invert_launches[name],
+                   "train": train_launches_run[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1107,9 +1387,9 @@ def main(argv=None) -> None:
                     "3xTF32 tensor-core rate for modconv3x3 and conv3x3 "
                     "(fma_bound_ms at the fp32 FMA rate), at the fp32 FMA "
                     "rate for modconv1x1; "
-                    "launches: the edit path's run (phase 5) plus the training "
-                    "run's (phase 8), of which train_backward_launches inside "
-                    "backward passes"})
+                    "launches: the edit path's run (phase 5), the real-photo "
+                    "path's (phase 7a) and the training run's (phase 8), of "
+                    "which train_backward_launches inside backward passes"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

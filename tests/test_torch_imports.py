@@ -29,6 +29,10 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.kernels.conv3x3", "where2edit_tpu_torch.train",
     "where2edit_tpu_torch.train.gan_trainer", "where2edit_tpu_torch.train.datasets",
     "where2edit_tpu_torch.train.checkpoints", "where2edit_tpu_torch.cli.train_stylegan",
+    # real-photo editing (e4e inversion; Pillow is imported only to read images)
+    "where2edit_tpu_torch.models.irse", "where2edit_tpu_torch.models.encoders",
+    "where2edit_tpu_torch.models.psp", "where2edit_tpu_torch.cli.common",
+    "where2edit_tpu_torch.demo.gallery",
 }
 
 
@@ -38,20 +42,33 @@ def test_torch_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, names = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 26
+    assert int(count) >= 31
     assert bad == "[]"
     assert NEW_MODULES <= set(names.split())
 
 
-def test_torch_entry_points_need_a_card_unless_told():
+def test_torch_entry_points_need_a_card_unless_told(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
     from where2edit_tpu_torch import resolve_device  # noqa: PLC0415
     from where2edit_tpu_torch.cli import edit, train_stylegan  # noqa: PLC0415
-    from where2edit_tpu_torch.demo.app import build_session  # noqa: PLC0415
+    from where2edit_tpu_torch.demo.app import (  # noqa: PLC0415
+        build_argparser,
+        build_session,
+        load_psp,
+        load_session,
+    )
+    from where2edit_tpu_torch.models.psp import PSp  # noqa: PLC0415
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_session(32)
+    torch.save({}, tmp_path / "e4e.pt")
+    args = build_argparser().parse_args(["--stylegan_size", "32", "--e4e_ckpt",
+                                         str(tmp_path / "e4e.pt")])
+    for refused in (lambda: load_session(args), lambda: load_psp(args),
+                    lambda: PSp.from_state_dict({}, stylegan_size=32)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            refused()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         edit.main(["--text", "grey hair", "--stylegan_size", "32"])
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -11,15 +11,23 @@ from where2edit_tpu.ops import fused_leaky_relu as j_lrelu
 from where2edit_tpu.ops import gaussian_blur as j_blur
 from where2edit_tpu.ops import interpolate_nearest as j_nearest
 from where2edit_tpu.ops import upfirdn2d as j_upfirdn2d
+from where2edit_tpu.ops.interpolate import adaptive_avg_pool as j_adaptive
+from where2edit_tpu.ops.interpolate import avg_pool as j_avg_pool
+from where2edit_tpu.ops.interpolate import interpolate_bilinear as j_bilinear
+from where2edit_tpu.ops.interpolate import upsample_repeat as j_repeat
 from where2edit_tpu.ops.segment import cluster_coverage_penalty as j_penalty
 from where2edit_tpu.ops.segment import segment_mean_map as j_segment
 from where2edit_tpu_torch.ops import (
+    adaptive_avg_pool,
+    avg_pool,
     cluster_coverage_penalty,
     fused_leaky_relu,
     gaussian_blur,
+    interpolate_bilinear,
     interpolate_nearest,
     segment_mean_map,
     upfirdn2d,
+    upsample_repeat,
 )
 
 from torch_parity import close, t
@@ -93,3 +101,46 @@ def test_torch_segment_mean_map_with_empty_cluster():
     assert float(means[k - 1]) == 0.0 and float(counts[k - 1]) == 0.0
     close(cluster_coverage_penalty(means, counts, b, 0.4),
           j_penalty(jm, jc, b, 0.4), TOL)
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("src,dst", [
+    ((8, 8), (16, 16)),     # up, integer ratio (the FPN merge's 16² -> 32²)
+    ((16, 16), (8, 8)),     # down
+    ((7, 9), (10, 13)),     # up, non-integer ratios, H != W
+    ((10, 13), (7, 9)),     # down, non-integer ratios
+    ((5, 6), (1, 1)),       # to size 1
+    ((1, 1), (4, 3)),       # from size 1
+])
+def test_torch_interpolate_bilinear(src, dst, align_corners):
+    x = rand(2, *src, 3)
+    got = interpolate_bilinear(t(x), dst, align_corners=align_corners)
+    want = j_bilinear(jnp.asarray(x), dst, align_corners=align_corners)
+    assert got.shape == want.shape
+    close(got, want, TOL)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((1024, 1024), (256, 256)),  # the pSp face pool
+    ((64, 64), (16, 16)),        # equal bins
+    ((24, 24), (10, 10)),        # general bins, overlapping
+    ((32, 32), (256, 256)),      # output larger than input
+    ((24, 32), (10, 7)),         # H != W
+])
+def test_torch_adaptive_avg_pool(src, dst):
+    x = rand(1, *src, 3)
+    got = adaptive_avg_pool(t(x), dst)
+    want = j_adaptive(jnp.asarray(x), dst)
+    assert got.shape == want.shape
+    close(got, want, TOL)
+
+
+@pytest.mark.parametrize("kernel,stride", [(2, None), (3, 2), (32, None)])
+def test_torch_avg_pool(kernel, stride):
+    x = rand(2, 64, 64, 3)
+    close(avg_pool(t(x), kernel, stride), j_avg_pool(jnp.asarray(x), kernel, stride), TOL)
+
+
+def test_torch_upsample_repeat():
+    x = rand(2, 5, 5, 3)
+    close(upsample_repeat(t(x), 7), j_repeat(jnp.asarray(x), 7), 0.0)

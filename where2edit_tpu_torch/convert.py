@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from where2edit_tpu_torch.models.irse import get_blocks
 from where2edit_tpu_torch.models.stylegan2 import channel_table
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel
 
@@ -29,6 +30,11 @@ def _t(a) -> torch.Tensor:
 
 def _mod_conv_w(a) -> torch.Tensor:
     return _t(np.asarray(a).transpose(3, 2, 0, 1)[None])
+
+
+def _conv_w(a) -> torch.Tensor:
+    """(kh, kw, I, O) -> (O, I, kh, kw)."""
+    return _t(np.asarray(a).transpose(3, 2, 0, 1))
 
 
 def _lin_w(a) -> torch.Tensor:
@@ -96,8 +102,7 @@ def _conv_layer(p: dict, prefix: str, *, downsample: bool) -> dict:
     """A ``ConvLayer``: Sequential indexes [Blur,] EqualConv2d
     [, FusedLeakyReLU]."""
     idx = 1 if downsample else 0
-    out = {f"{prefix}.{idx}.weight": _t(np.asarray(p["conv"]["weight"])
-                                        .transpose(3, 2, 0, 1))}
+    out = {f"{prefix}.{idx}.weight": _conv_w(p["conv"]["weight"])}
     if downsample:
         out[f"{prefix}.0.kernel"] = _t(make_kernel([1, 3, 3, 1]))
     if "bias" in p["conv"]:
@@ -181,12 +186,90 @@ def clip_text_state_dict(variables: dict) -> dict:
     return sd
 
 
+def _batch_norm(p: dict, s: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"]),
+            f"{prefix}.running_mean": _t(s["mean"]),
+            f"{prefix}.running_var": _t(s["var"])}
+
+
+def _bottleneck(p: dict, s: dict, prefix: str) -> dict:
+    sd = {}
+    if "shortcut_conv" in p:
+        sd[f"{prefix}.shortcut_layer.0.weight"] = _conv_w(p["shortcut_conv"]["weight"])
+        sd.update(_batch_norm(p["shortcut_bn"], s["shortcut_bn"],
+                              f"{prefix}.shortcut_layer.1"))
+    sd.update(_batch_norm(p["bn1"], s["bn1"], f"{prefix}.res_layer.0"))
+    sd[f"{prefix}.res_layer.1.weight"] = _conv_w(p["conv1"]["weight"])
+    sd[f"{prefix}.res_layer.2.weight"] = _t(p["prelu"]["alpha"])
+    sd[f"{prefix}.res_layer.3.weight"] = _conv_w(p["conv2"]["weight"])
+    sd.update(_batch_norm(p["bn2"], s["bn2"], f"{prefix}.res_layer.4"))
+    if "se" in p:
+        for fc in ("fc1", "fc2"):
+            sd[f"{prefix}.res_layer.5.{fc}.weight"] = _conv_w(p["se"][fc]["weight"])
+    return sd
+
+
+def _index(tree: dict, j: int) -> dict:
+    """Entry ``j`` of a tree stacked along axis 0 (an ``nn.scan``'s)."""
+    return {k: _index(v, j) if isinstance(v, dict) else np.asarray(v)[j]
+            for k, v in tree.items()}
+
+
+def encoder_state_dict(variables: dict, kind: str = "e4e",
+                       stylegan_size: int = 1024, num_layers: int = 50) -> dict:
+    """``{"params", "batch_stats"}`` of a ``where2edit_tpu.models.encoders``
+    encoder -> the reference-layout state dict (the inverse of
+    ``where2edit_tpu/convert/irse.py::convert_encoder_params``). ``kind``:
+    'gradual', 'e4e' or 'w'. The 50-layer trunk's stage tails and the
+    three style groups are stacked along axis 0 there and come apart here;
+    other depths are unrolled there too."""
+    params, stats = variables["params"], variables["batch_stats"]
+    bp, bs = params["body"], stats["body"]
+    sd = {"input_layer.0.weight": _conv_w(bp["input_conv"]["weight"]),
+          "input_layer.2.weight": _t(bp["input_prelu"]["alpha"])}
+    sd.update(_batch_norm(bp["input_bn"], bs["input_bn"], "input_layer.1"))
+    idx = 0
+    for si, stage in enumerate(get_blocks(num_layers)):
+        for j in range(len(stage)):
+            tail = f"stage{si}_tail"
+            if j > 0 and tail in bp:
+                p, s = _index(bp[tail]["blk"], j - 1), _index(bs[tail]["blk"], j - 1)
+            else:
+                p, s = bp[f"body_{idx}"], bs[f"body_{idx}"]
+            sd.update(_bottleneck(p, s, f"body.{idx}"))
+            idx += 1
+    if kind == "w":
+        sd.update(_equal_linear(params["linear"], "linear"))
+        return sd
+    style_count = 2 * int(math.log2(stylegan_size)) - 2
+    groups = (("styles_coarse", 0), ("styles_middle", 3), ("styles_fine", 7))
+    for name, first in groups:
+        blk = params[name]["blk"]
+        n = np.asarray(blk["linear"]["weight"]).shape[0]
+        for j in range(n):
+            p, pre = _index(blk, j), f"styles.{first + j}"
+            for c in range(len(p) - 1):  # conv_0 … conv_{n-1}, then linear
+                conv = p[f"conv_{c}"]
+                sd[f"{pre}.convs.{2 * c}.weight"] = _conv_w(conv["weight"])
+                sd[f"{pre}.convs.{2 * c}.bias"] = _t(conv["bias"])
+            sd.update(_equal_linear(p["linear"], f"{pre}.linear"))
+    if first + n != style_count:
+        raise ValueError(f"{first + n} style blocks, not the {style_count} of "
+                         f"stylegan_size {stylegan_size}")
+    for name in ("latlayer1", "latlayer2"):
+        sd[f"{name}.weight"] = _conv_w(params[name]["weight"])
+        sd[f"{name}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
 def load_converted(module: nn.Module, state_dict: dict) -> nn.Module:
     """Load a converted state dict. Only the S-space attention convs'
-    unused ``conv.modulation`` parameters may be missing; anything else
-    missing or unexpected raises."""
+    unused ``conv.modulation`` parameters and BatchNorm's
+    ``num_batches_tracked`` counters (which flax does not keep) may be
+    missing; anything else missing or unexpected raises."""
     missing, unexpected = module.load_state_dict(state_dict, strict=False)
-    bad = [k for k in missing if ".conv.modulation." not in k]
+    bad = [k for k in missing if ".conv.modulation." not in k
+           and not k.endswith(".num_batches_tracked")]
     if bad or unexpected:
         raise KeyError(f"missing {bad}, unexpected {list(unexpected)}")
     return module
