@@ -35,7 +35,10 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    and skip), at batch 8 and, for K1 and K3, at the path-length batch of 4,
    against the plain version (``KERNEL_REL_TOL``); then, at batch 8, every
    input gradient of the autograd Function against autograd through the
-   plain version (``BACKWARD_REL_TOL``).
+   plain version (``BACKWARD_REL_TOL``); and the region-attention trainer's
+   shapes at batch 8: K3 at the mapper's 19 attention convs (blending at
+   layer 8) with its weight gradient, K1 at 4²-16² on a frozen weight (style
+   and demod gradients, no weight gradient).
 5. slice   — the edit path at full width (1024², 18 W+ rows, 26 taps,
    seeded random weights): one seeded face, three edits and one 2-prompt
    sweep through ``EditSession``, with the launch counters set to 0 just
@@ -84,7 +87,30 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
 10. train_whole — one training iteration at 64² on the card and on the CPU
    from the same weights and draws, each program from the same state: the
    losses and every parameter's gradient (``TRAIN_*_TOL``).
-11. the ``kernels`` summary line, then the last line
+11. cluster — ``cli/run_clustering.main`` at 1024², channel multiplier 2,
+   layer 13, 10 clusters, batch 5, ``--step 4`` (327,680 × 576 rows; its one
+   cut), the fit the CLI's default (native C++ Lloyd on the host where
+   sklearn is missing): K1 and K3 per synthesis pass, the pickle's shape,
+   ms of collection and fit; then the device Lloyd (``kmeans_fit(backend=
+   "torch")``, 50 iterations) on the default ``--step 20`` matrix
+   (1,638,400 × 576, 3.77 GB), and the card's Lloyd against the CPU's on
+   65,536 rows, each of 50 iterations from the CPU's centres
+   (``KMEANS_REL_TOL``).
+12. attention — ``cli/run_attention.main`` at 1024², ``--work_in_stylespace
+   --use_cluster`` on phase 11's pickle, batch 8, 6 steps, seeded random
+   ViT-B/32 and VGG16, with ``AttentionProbe`` as its span: finite losses,
+   nothing moved at step 0 (lr 0), every trained mapper parameter moved at
+   step 1, the attention*/initial* ones never, no generator, CLIP or VGG
+   parameter with a gradient, no K1 weight preparation, K1 and K3 launches
+   per stage against ``attention_launches``; then ``--resume`` of its final
+   checkpoint. ms per step over steps 1-5 and the stage split, samples/s,
+   peak memory.
+13. attention_profile — one more step of that trainer under
+   ``torch.profiler``: device busy, idle share, launches, categories.
+14. attention_whole — one step at 64² on the card and on the CPU from the
+   same weights and draws, every mapper gradient unmasked: the loss terms
+   (``TRAIN_LOSS_REL_TOL``) and the mapper's gradient (``TRAIN_*_GRAD_TOL``).
+15. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -94,9 +120,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import glob
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -109,24 +137,45 @@ import torch
 import torch.nn.functional as F
 
 from where2edit_tpu_torch.cli import edit as edit_cli
-from where2edit_tpu_torch.cli import train_stylegan
+from where2edit_tpu_torch.cli import run_attention, run_clustering, train_stylegan
+from where2edit_tpu_torch.cli.common import (
+    build_generator,
+    load_cluster_centers,
+    mean_latent,
+)
+from where2edit_tpu_torch.cli.run_clustering import collect_features
 from where2edit_tpu_torch.demo.app import build_argparser as app_argparser
 from where2edit_tpu_torch.demo.app import build_session, load_psp
 from where2edit_tpu_torch.editing.attention_mappers import (
+    FullSpaceMapperFEATClusterLinStyle,
     attention_tables,
     tap_resolution,
 )
+from where2edit_tpu_torch.editing.clustering import _lloyd, kmeans_fit
 from where2edit_tpu_torch.kernels import common
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
+from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
+from where2edit_tpu_torch.models.clip_model import CLIP
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.encoders import Encoder4Editing
 from where2edit_tpu_torch.models.psp import PSp
-from where2edit_tpu_torch.models.stylegan2 import channel_table
+from where2edit_tpu_torch.models.stylegan2 import Generator, channel_table
+from where2edit_tpu_torch.models.vgg import Vgg16
 from where2edit_tpu_torch.nn.layers import EqualLinear
 from where2edit_tpu_torch.ops.interpolate import adaptive_avg_pool
-from where2edit_tpu_torch.train.gan_trainer import Draws, GANTrainConfig, GANTrainer
+from where2edit_tpu_torch.train.attention_trainer import (
+    AttentionTrainConfig,
+    AttentionTrainer,
+    Draws,
+    is_attention_param,
+)
+from where2edit_tpu_torch.train.corpus import ATTENTION_PROMPTS
+from where2edit_tpu_torch.train.gan_trainer import Draws as GANDraws
+from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+from where2edit_tpu_torch.utils.logging import read_scalars
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
@@ -305,20 +354,27 @@ def k1_shapes():
     return [(r, ch[r], ch[r]) for r in (4, 8, 16, 32, 64, 128, 256, 512, 1024)]
 
 
+def mapper_conv_shapes(attention_layer: int) -> list:
+    """(name, res, Cin, Cout) of the 1024² mapper's 19 attention convs
+    (attention_first, the 17 tap convs, attention_last) blending at
+    ``attention_layer``: each runs at the smaller of its tap's and the blend
+    resolution."""
+    blend = tap_resolution(attention_layer)
+    tab = attention_tables(SIZE)
+    return ([("attention_first", 4, channel_table(2)[4], 32)]
+            + [(f"attention_{c}", min(tap_resolution(c + 1), blend),
+                tab["tap_channels"][c], 32) for c in tab["layer_num"]]
+            + [("attention_last", blend, 32 * tab["n_latent"], 1)])
+
+
 def k3_shapes():
     """(name, res, Cin, Cout, demod_act_noise, residual): the 9 ToRGBs, then
-    the mapper's attention_first, 17 tap convs and attention_last."""
+    the edit mapper's attention convs."""
     ch = channel_table(2)
-    blend = tap_resolution(ATTENTION_LAYER)
     shapes = [(f"to_rgb_{r}", r, ch[r], 3, False, r > 4)
               for r in (4, 8, 16, 32, 64, 128, 256, 512, 1024)]
-    tab = attention_tables(SIZE)
-    shapes.append(("attention_first", 4, ch[4], 32, True, False))
-    for c in tab["layer_num"]:
-        r = min(tap_resolution(c + 1), blend)
-        shapes.append((f"attention_{c}", r, tab["tap_channels"][c], 32, True, False))
-    shapes.append(("attention_last", blend, 32 * tab["n_latent"], 1, True, False))
-    return shapes
+    return shapes + [(*shape, True, False)
+                     for shape in mapper_conv_shapes(ATTENTION_LAYER)]
 
 
 def k2_shapes():
@@ -492,10 +548,12 @@ def phase_kernels() -> dict:
 # phase 4: the kernels' backward against autograd through the plain versions
 # ---------------------------------------------------------------------------
 
-def _grads(fn, inputs: dict, dy: torch.Tensor) -> dict:
-    """{name: d(Σ fn(**inputs)·dy)/d input} for the inputs that are tensors."""
+def _grads(fn, inputs: dict, dy: torch.Tensor, frozen: tuple = ()) -> dict:
+    """{name: d(Σ fn(**inputs)·dy)/d input} for the inputs that are tensors
+    and not ``frozen`` (those enter without a gradient)."""
     leaves = {k: v.detach().clone().requires_grad_(True)
-              for k, v in inputs.items() if isinstance(v, torch.Tensor)}
+              for k, v in inputs.items()
+              if isinstance(v, torch.Tensor) and k not in frozen}
     out = fn(**{**inputs, **leaves})
     got = torch.autograd.grad(out, list(leaves.values()), dy)
     return dict(zip(leaves, got))
@@ -534,16 +592,18 @@ def phase_backward() -> tuple:
         check(err <= KERNEL_REL_TOL, f"{name} forward {shape}: rel {err}")
         return err
 
-    def compare(name, shape, kernel_fn, plain_fn, make, train_kw, batches):
+    def compare(name, shape, kernel_fn, plain_fn, make, train_kw, batches,
+                frozen=()):
         """``make(b)`` gives the inputs at batch b; ``train_kw`` what the
-        trainer's forward adds to them (the activation)."""
+        trainer's forward adds to them (the activation); ``frozen`` the
+        inputs that take no gradient (a frozen generator's weight)."""
         fwd = {f"batch {b}": forward(name, shape, kernel_fn, plain_fn,
                                      {**make(b), **train_kw}) for b in batches}
         inputs = make(batch)
         x = inputs["x"]
         dy = randn(*x.shape[:-1], inputs["w"].shape[-1])
-        got = _grads(kernel_fn, inputs, dy)
-        want = _grads(plain_fn, inputs, dy)
+        got = _grads(kernel_fn, inputs, dy, frozen)
+        want = _grads(plain_fn, inputs, dy, frozen)
         torch.cuda.synchronize()
         errs = {k: rel_err(got[k], want[k])[1] for k in got}
         worst[name] = max(worst[name], *errs.values())
@@ -583,6 +643,33 @@ def phase_backward() -> tuple:
 
         compare("modconv1x1", f"to_rgb_{res} {res}x{res} {cin}->3", k3.modconv1x1,
                 k3.modconv1x1_plain, k3_inputs, {}, (batch, path_batch))
+    # region-attention training: the mapper's attention convs, whose weight
+    # is a trained parameter, and the frozen generator's K1 at the layers
+    # whose styles the mapper edits (4²-16²: style and demod gradients, no
+    # weight gradient)
+    for name, res, cin, cout in mapper_conv_shapes(TRAIN_ATTENTION_LAYER):
+        p = res * res
+
+        def k3m_inputs(b, p=p, cin=cin, cout=cout):
+            return {"x": randn(b, p, cin), "style": randn(b, cin) / math.sqrt(cin),
+                    "w": randn(cin, cout), "demod": randn(b, cout).abs() + 0.5,
+                    "noise": randn(b, p), "noise_weight": randn(1),
+                    "bias": randn(cout), "act": False}
+
+        compare("modconv1x1", f"{name} {res}x{res} {cin}->{cout}", k3.modconv1x1,
+                k3.modconv1x1_plain, k3m_inputs, {"act": True}, (batch,))
+    for res, cin, cout in k1_shapes()[:3]:
+        scale = 1.0 / math.sqrt(cin * 9)
+
+        def k1f_inputs(b, res=res, cin=cin, cout=cout, scale=scale):
+            return {"x": randn(b, res, res, cin), "style": scale * randn(b, cin),
+                    "w": randn(3, 3, cin, cout), "demod": randn(b, cout).abs() + 0.5,
+                    "noise": randn(b, res, res), "noise_weight": randn(1),
+                    "bias": randn(cout), "act": False}
+
+        compare("modconv3x3", f"frozen w {res}x{res} {cin}->{cout}", k1.modconv3x3,
+                k1.modconv3x3_plain, k1f_inputs, {"act": True}, (batch,),
+                frozen=("w",))
     return worst_fwd, worst
 
 
@@ -1248,9 +1335,9 @@ def phase_train_whole() -> None:
     path_draws = cpu.draw(cpu.path_batch())
     pl_noise = torch.randn(cpu.path_batch(), size, size, 3, generator=cpu.rng)
 
-    def to_gpu(d: Draws) -> Draws:
-        return Draws(d.z1.cuda(), d.z2.cuda(), d.inject.cuda(),
-                     [n.cuda() for n in d.noise])
+    def to_gpu(d: GANDraws) -> GANDraws:
+        return GANDraws(d.z1.cuda(), d.z2.cuda(), d.inject.cuda(),
+                        [n.cuda() for n in d.noise])
 
     # non-zero noise gains (they start at 0), so each layer's per-sample
     # noise reaches the images and the losses
@@ -1307,6 +1394,366 @@ def phase_train_whole() -> None:
     check(got == want, f"64² card programs launched {got}, expected {want}")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: k-means regions at full width (cli/run_clustering.py)
+# ---------------------------------------------------------------------------
+
+# the device of phases 11-14 ("cpu" rehearses them at a small SIZE)
+DEV = "cuda"
+CLUSTER_LAYER, N_CLUSTERS, CLUSTER_STEPS = 13, 10, 4
+LLOYD_STEPS, LLOYD_ITERS, LLOYD_SUBSAMPLE = 20, 50, 65536
+# Lloyd, card against CPU, each iteration from the CPU's centres of the one
+# before (a trajectory held for 50 iterations is chaotic: one row that
+# lands in the other centre changes every later step; a first chip run saw
+# 20,723 of 65,536 rows end apart), max |Δ| / max |CPU| of the centres: fp32
+# products summed in another order move a distance by ~1e-6 relative, and a
+# row that close to two centres can take the other one (its centre's mean
+# moves by ~1/count of the row's offset).
+KMEANS_REL_TOL = 1e-3
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def cluster_args() -> list:
+    return ["--stylegan_size", str(SIZE), "--channel_multiplier", "2",
+            "--attention_layer", str(CLUSTER_LAYER), "--cluster_num",
+            str(N_CLUSTERS), "--batch_size", "5", "--step", str(CLUSTER_STEPS),
+            "--device", DEV]
+
+
+def fenced_span(records: list):
+    """A ``span(stage)`` that fences the stage with ``torch.cuda.synchronize``
+    and appends (stage, ms, (K1, K2, K3) launches) to ``records``."""
+    @contextlib.contextmanager
+    def span(stage):
+        sync()
+        before, t0 = counts(), time.perf_counter()
+        yield
+        sync()
+        records.append((stage, (time.perf_counter() - t0) * 1e3,
+                        tuple(a - b for a, b in zip(counts(), before))))
+    return span
+
+
+def phase_cluster(card: str, keep_dir: str) -> tuple:
+    """``cli/run_clustering.main`` at full width (its launches per pass and
+    its pickle), then the device Lloyd at the CLI's default size, then the
+    card's Lloyd against the CPU's. Returns ({kernel: launches}, the pickle's
+    path, copied into ``keep_dir``)."""
+    records = []
+    k1.launches = k2.launches = k3.launches = 0
+    # --- the main path: the CLI, with --step 4 (its one cut) ---
+    with tempfile.TemporaryDirectory() as results:
+        path = run_clustering.main([*cluster_args(), "--results_dir", results],
+                                   span=fenced_span(records))
+        centers = load_cluster_centers(path)
+        kept = shutil.copy(path, keep_dir)
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    per_pass = (1 + int(math.log2(SIZE)) - 2, 0, 1 + int(math.log2(SIZE)) - 2)
+    steps = CLUSTER_STEPS
+    expect = {"collect": tuple(steps * n for n in per_pass), "fit": (0, 0, 0),
+              "visualize": per_pass}
+    for stage, _, got in records:
+        check(got == expect[stage], f"run_clustering {stage}: launches {got}, "
+                                    f"expected {expect[stage]}")
+    width = channel_table(2)[tap_resolution(CLUSTER_LAYER)]
+    check(centers.shape == (N_CLUSTERS, width + 2 * (width // 16))
+          and bool(np.isfinite(centers).all()), f"centres {centers.shape}")
+    ms = {stage: t for stage, t, _ in records}
+
+    # --- the device Lloyd on the production-size matrix (--step 20) ---
+    dev = torch.device(DEV)
+    gen, _ = build_generator(SIZE, None, 2, device=dev)
+    rng = torch.Generator(dev).manual_seed(200)
+    mean_w = mean_latent(gen, rng)
+    sync()
+    t0 = time.perf_counter()
+    data = collect_features(gen, mean_w, rng, layer=CLUSTER_LAYER, batch=5,
+                            steps=LLOYD_STEPS)
+    sync()
+    collect_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    fit = kmeans_fit(data, N_CLUSTERS, backend="torch", num_iters=LLOYD_ITERS)
+    lloyd_ms = (time.perf_counter() - t0) * 1e3
+    check(fit.shape == centers.shape and bool(np.isfinite(fit).all()),
+          f"device Lloyd centres {fit.shape}")
+
+    # --- the card's Lloyd against the CPU's, iteration by iteration ---
+    pick = torch.randperm(data.shape[0], generator=torch.Generator().manual_seed(0))
+    sub = data[pick[:LLOYD_SUBSAMPLE].to(dev)]
+    sub_cpu, c_cpu = sub.cpu(), sub[:N_CLUSTERS].cpu()
+    abs_err = rel = 0.0
+    ids_differ = 0
+    for _ in range(LLOYD_ITERS):
+        c_card = _lloyd(sub, c_cpu.to(dev), N_CLUSTERS, 1).cpu()
+        ids_differ = max(ids_differ, int((assign_rows(sub, c_cpu.to(dev)).cpu()
+                                          != assign_rows(sub_cpu, c_cpu)).sum()))
+        c_cpu = _lloyd(sub_cpu, c_cpu, N_CLUSTERS, 1)
+        err = rel_err(c_card, c_cpu)
+        abs_err, rel = max(abs_err, err[0]), max(rel, err[1])
+    nbytes = data.numel() * 4
+    emit({"phase": "cluster", "card": card, "size": SIZE, "layer": CLUSTER_LAYER,
+          "cli_args": cluster_args(), "cli_matrix": [steps * 5 * (2 * tap_resolution(
+              CLUSTER_LAYER)) ** 2, centers.shape[1]],
+          "cli_ms": ms, "cli_launches": launches, "launches_per_pass": per_pass,
+          "pickle_shape": list(centers.shape),
+          "lloyd_matrix": list(data.shape), "lloyd_gb": nbytes / 1e9,
+          "lloyd_collect_ms": collect_ms, "lloyd_iters": LLOYD_ITERS,
+          "lloyd_ms": lloyd_ms, "lloyd_ms_per_iter": lloyd_ms / LLOYD_ITERS,
+          # each iteration reads the matrix twice (distances, one-hot sums)
+          "lloyd_read_bound_ms": 2 * LLOYD_ITERS * nbytes / HBM_BYTES_PER_S * 1e3,
+          "card_vs_cpu": {"rows": LLOYD_SUBSAMPLE, "iterations": LLOYD_ITERS,
+                          "max_abs_err": abs_err, "max_rel_err": rel,
+                          "tol": KMEANS_REL_TOL, "max_ids_differ": ids_differ}})
+    check(rel <= KMEANS_REL_TOL, f"Lloyd card vs CPU: rel {rel}")
+    del data, sub, gen
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    return launches, kept
+
+
+def assign_rows(data: torch.Tensor, centers: torch.Tensor) -> torch.Tensor:
+    d = (data.square().sum(-1, keepdim=True) - 2.0 * (data @ centers.t())
+         + centers.square().sum(-1)[None, :])
+    return d.argmin(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# phases 12-14: region-attention training (cli/run_attention.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_ATTENTION_LAYER = 8
+ATTENTION_BATCH, ATTENTION_STEPS = 8, 6
+ATTENTION_STAGES = ("synthesis", "cond_clip", "mapper", "edit", "losses",
+                    "backward", "adam")
+
+
+def attention_launches(n_oct: int, mapper_convs: int) -> dict:
+    """{stage: (K1, K2, K3) launches} of one production training step at a
+    size with ``n_oct`` octaves above 4²: L = n_oct + 1 layers per kernel
+    (the generator's conv1 and one 3x3 conv per octave for K1, its ToRGBs
+    for K3). synthesis: the target (row 0) and the conditioning batch;
+    mapper: its attention convs; edit: the blended synthesis; backward: K1's
+    input gradient at every 3x3 conv but conv1 (its input is the frozen
+    constant), K3's backward is plain."""
+    lay = n_oct + 1
+    return {"synthesis": (2 * lay, 0, 2 * lay), "cond_clip": (0, 0, 0),
+            "mapper": (0, 0, mapper_convs), "edit": (lay, 0, lay),
+            "losses": (0, 0, 0), "backward": (n_oct, 0, 0), "adam": (0, 0, 0)}
+
+
+class AttentionProbe:
+    """The ``span`` of ``cli/run_attention.main``: fences each stage, times
+    it, reads the launch and K1-preparation counters around it; checks
+    after each backward that no generator, CLIP or VGG parameter has a
+    gradient, after step 0 that nothing moved (lr 0), after step 1 that
+    every trained mapper parameter moved."""
+
+    def __init__(self):
+        self.records = []          # (step, stage, ms, (K1, K2, K3), prepares)
+        self.trainer = None
+        self.start = None
+        self.step = -1
+
+    @contextlib.contextmanager
+    def __call__(self, stage, trainer):
+        if self.trainer is None:
+            self.trainer = trainer
+            self.start = {n: p.detach().clone()
+                          for n, p in trainer.mapper.named_parameters()}
+        if stage == "synthesis":
+            self.step += 1
+        sync()
+        before, prep, t0 = counts(), k1.prepares, time.perf_counter()
+        yield
+        sync()
+        self.records.append((self.step, stage, (time.perf_counter() - t0) * 1e3,
+                             tuple(a - b for a, b in zip(counts(), before)),
+                             k1.prepares - prep))
+        if stage == "backward":
+            frozen = [m for m in (trainer.generator, trainer.clip_loss.model,
+                                  trainer.perceptual.vgg)
+                      for p in m.parameters() if p.grad is not None]
+            check(not frozen, f"step {self.step}: {len(frozen)} frozen "
+                              "parameters have a gradient")
+        if stage == "adam" and self.step in (0, 1):
+            moved = {n for n, p in trainer.mapper.named_parameters()
+                     if not torch.equal(p, self.start[n])}
+            if self.step == 0:
+                check(not moved, f"step 0 (lr 0) moved {sorted(moved)[:5]}")
+            else:
+                want = {n for n in trainer.param_names if not is_attention_param(n)}
+                check(want <= moved, f"step 1: did not move {sorted(want - moved)[:5]}")
+
+
+def phase_attention(card: str, cluster_path: str) -> tuple:
+    """Returns ({kernel: launches}, {kernel: launches in backward passes},
+    the trainer)."""
+    probe = AttentionProbe()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k3.launches = 0
+    with tempfile.TemporaryDirectory() as results:
+        args = ["--stylegan_size", str(SIZE), "--work_in_stylespace",
+                "--use_cluster", "--cluster_path",
+                cluster_path, "--batch_size", str(ATTENTION_BATCH), "--step",
+                str(ATTENTION_STEPS), "--save_intermediate_image_every", "0",
+                "--device", DEV, "--results_dir", results]
+        out_dir = run_attention.main(args, span=probe)
+        launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                    "modconv1x1": k3.launches}
+        peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+        trainer = probe.trainer
+        (log_dir,) = glob.glob(os.path.join(results, "logs", "*"))
+        losses = [r["value"] for r in read_scalars(log_dir) if r["tag"] == "loss/loss"]
+        ckpt_path = os.path.join(out_dir, "final_mapper.pt")
+        check(os.path.isfile(ckpt_path), "no final checkpoint")
+        resumed = run_attention.main(args[:-1] + [os.path.join(results, "resumed"),
+                                                  "--resume", ckpt_path])
+        a = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        b = torch.load(os.path.join(resumed, "final_mapper.pt"), map_location="cpu",
+                       weights_only=True)
+    check(len(losses) == ATTENTION_STEPS and all(map(math.isfinite, losses)),
+          f"losses {losses}")
+    check(b["step"] == a["step"] == ATTENTION_STEPS
+          and all(torch.equal(a["mapper"][k], b["mapper"][k]) for k in a["mapper"])
+          and a["adam"]["count"] == b["adam"]["count"], "--resume did not load the checkpoint")
+    unchanged = [n for n, p in trainer.mapper.named_parameters()
+                 if is_attention_param(n) and not torch.equal(p, probe.start[n])]
+    check(not unchanged, f"frozen attention parameters moved: {unchanged[:5]}")
+    expect = attention_launches(trainer.generator.log_size - 2,
+                                len(trainer.mapper.layer_num) + 2)
+    stage_ms = defaultdict(list)
+    step_ms = defaultdict(float)
+    for step, stage, ms, got, prep in probe.records:
+        check(got == expect[stage], f"step {step} {stage}: launches {got}, "
+                                    f"expected {expect[stage]}")
+        check(prep == 0, f"step {step} {stage}: {prep} K1 weight preparations")
+        if step >= 1:
+            stage_ms[stage].append(ms)
+            step_ms[step] += ms
+    backward = expect["backward"]
+    steps = sorted(step_ms)
+    per_step = [step_ms[s] for s in steps]
+    emit({"phase": "attention", "card": card, "size": SIZE, "batch": ATTENTION_BATCH,
+          "steps": ATTENTION_STEPS, "attention_layer": TRAIN_ATTENTION_LAYER,
+          "cluster_layer": CLUSTER_LAYER, "losses": losses, "launches": launches,
+          "launches_per_step": {k: v for k, v in expect.items() if any(v)},
+          "step_ms": per_step, "mean_step_ms": statistics.mean(per_step),
+          "stage_ms_mean": {k: statistics.mean(v) for k, v in stage_ms.items()},
+          "samples_per_s": ATTENTION_BATCH * len(per_step) / (sum(per_step) / 1e3),
+          "peak_mem_gib": peak / 2 ** 30,
+          "note": "steps 1-5 (step 0 builds cuDNN plans and caches), each "
+                  "stage fenced by torch.cuda.synchronize"})
+    n_steps = 1 + max(s for s, *_ in probe.records)
+    return (launches, dict(zip(launches, (n * n_steps for n in backward))), trainer)
+
+
+def phase_attention_profile(trainer, card: str) -> None:
+    """One more step of phase 12's trainer under ``torch.profiler`` (no
+    stage spans: backward kernels run on autograd's own thread)."""
+    trainer.span = lambda stage, tr: contextlib.nullcontext()
+    with torch.no_grad():
+        bank = trainer.clip_loss.encode_text(
+            torch.from_numpy(np.asarray(tokenize(list(ATTENTION_PROMPTS)))).long().to(DEV))
+    out = {}
+
+    def run(span):
+        out["aux"] = trainer.step(ATTENTION_STEPS, bank)[0]
+
+    rec = device_profile(run, (), 1)
+    emit({"phase": "attention_profile", "card": card, "size": SIZE,
+          "batch": trainer.cfg.batch_size,
+          "losses": {k: float(v) for k, v in out["aux"].items()}, **rec})
+
+
+def attention_parts(size: int, device: str, seed: int = 0) -> tuple:
+    """(generator, mapper, CLIP loss, perceptual loss) at ``size`` with
+    seeded random weights, full-width CLIP ViT-B/32 and VGG16; the mapper's
+    centres carry no feature part (only position), so every pixel's region
+    is set by geometry alone and the card and the CPU cannot split a
+    near-tie two ways."""
+    rng = torch.Generator().manual_seed(seed)
+    gen = Generator(size, rng=rng)
+    with torch.no_grad():  # non-zero noise gains, so the noise path counts
+        for name, p in gen.named_parameters():
+            if name.endswith("noise.weight"):
+                p.copy_(0.1 * torch.randn(1, generator=rng))
+    mapper = FullSpaceMapperFEATClusterLinStyle(
+        layers=gen.n_latent, attention_layer=TRAIN_ATTENTION_LAYER,
+        cluster_layer=CLUSTER_LAYER, generator_size=size, rng=rng)
+    pos = torch.rand(N_CLUSTERS, 2, generator=rng) * 2 - 1
+    with torch.no_grad():
+        mapper.initial_state.zero_()
+        mapper.initial_state[:, 512:544] = pos[:, :1]
+        mapper.initial_state[:, 544:] = pos[:, 1:]
+    clip = CLIP(rng=torch.Generator().manual_seed(seed + 1))
+    vgg = Vgg16(rng=torch.Generator().manual_seed(seed + 2))
+    gen, mapper, clip, vgg = (m.to(device).eval() for m in (gen, mapper, clip, vgg))
+    return gen, mapper, CLIPLoss(clip, size), PerceptualLoss(vgg, size)
+
+
+def phase_attention_whole() -> None:
+    """One training step at 64² on the card and on the CPU from the same
+    weights and draws, every mapper gradient unmasked
+    (``freeze_attention_until`` 0): each loss term within
+    ``TRAIN_LOSS_REL_TOL``, the mapper's gradient within
+    ``TRAIN_MODEL_GRAD_TOL`` (whole model) and ``TRAIN_PARAM_GRAD_TOL`` (per
+    tensor)."""
+    size, batch, step_idx = 64, 4, 60
+    cfg = AttentionTrainConfig(stylegan_size=size, attention_layer=TRAIN_ATTENTION_LAYER,
+                               cluster_layer=CLUSTER_LAYER, batch_size=batch,
+                               step=300, work_in_stylespace=True,
+                               freeze_attention_until=0.0)
+    cpu_parts = attention_parts(size, "cpu")
+    gpu_parts = attention_parts(size, DEV)
+    g = torch.Generator().manual_seed(5)
+    draws = Draws(torch.randn(batch, 512, generator=g), torch.randn(batch, 512, generator=g),
+                  torch.randint(0, 7, (batch,), generator=g))
+    bank = torch.randn(7, 512, generator=g)
+    mean_w = cpu_parts[0].mean_latent(256, torch.Generator().manual_seed(6))
+    n = counts()
+    result = {}
+    for dev, (gen, mapper, clip_loss, perceptual) in (("cpu", cpu_parts),
+                                                        (DEV, gpu_parts)):
+        trainer = AttentionTrainer(cfg, generator=gen, mapper=mapper,
+                                   clip_loss=clip_loss, perceptual=perceptual,
+                                   mean_latent=mean_w.to(dev))
+        aux, _, _ = trainer.step_with(Draws(*(t.to(dev) for t in draws)), step_idx,
+                                      bank.to(dev))
+        result[dev] = ({k: float(v) for k, v in aux.items()},
+                       {name: p.grad.double().cpu()
+                        for name, p in zip(trainer.param_names, trainer.params)})
+    launches = tuple(a - b for a, b in zip(counts(), n))
+    (loss_c, grad_c), (loss_g, grad_g) = result["cpu"], result[DEV]
+    loss_rel = {k: abs(loss_g[k] - loss_c[k]) / max(abs(loss_c[k]), 1e-30)
+                for k in loss_c}
+    diff2 = ref2 = 0.0
+    worst, worst_name = 0.0, None
+    for name, gc in grad_c.items():
+        d2, r2 = float((grad_g[name] - gc).square().sum()), float(gc.square().sum())
+        diff2, ref2 = diff2 + d2, ref2 + r2
+        e = math.sqrt(d2 / max(r2, 1e-60)) if d2 > 0 else 0.0
+        if e > worst:
+            worst, worst_name = e, name
+    model_rel = math.sqrt(diff2 / ref2)
+    emit({"phase": "attention_whole", "size": size, "batch": batch, "step_idx": step_idx,
+          "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
+          "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
+          "worst_param": worst_name, "card_launches": launches,
+          "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
+          "model_grad_tol": TRAIN_MODEL_GRAD_TOL})
+    bad = {k: v for k, v in loss_rel.items() if not v <= TRAIN_LOSS_REL_TOL}
+    check(not bad, f"64² attention step losses: {bad}")
+    check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² mapper grads: rel {model_rel}")
+    check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² mapper {worst_name}: rel {worst}")
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1330,6 +1777,14 @@ def main(argv=None) -> None:
         phase_train_profile(trainer, card)
         del trainer
         phase_train_whole()
+        with tempfile.TemporaryDirectory() as keep:
+            cluster_launches, cluster_path = phase_cluster(card, keep)
+            attention_run, attention_backward, trainer = phase_attention(
+                card, cluster_path)
+        phase_attention_profile(trainer, card)
+        del trainer
+        torch.cuda.empty_cache()
+        phase_attention_whole()
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -1355,11 +1810,13 @@ def main(argv=None) -> None:
     for name, (src, replaces) in sources.items():
         tot = totals[name]
         by_path = {"edit": edit_launches.get(name, 0), "invert": invert_launches[name],
-                   "train": train_launches_run[name]}
+                   "train": train_launches_run[name], "cluster": cluster_launches[name],
+                   "attention": attention_run[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "train_backward_launches": backward_launches[name],
+            "attention_backward_launches": attention_backward[name],
             "max_abs_err": tot["max_abs_err"],
             "max_rel_err": tot["max_rel_err"],
             "train_forward_max_rel_err": train_fwd_err[name],
@@ -1388,8 +1845,11 @@ def main(argv=None) -> None:
                     "(fma_bound_ms at the fp32 FMA rate), at the fp32 FMA "
                     "rate for modconv1x1; "
                     "launches: the edit path's run (phase 5), the real-photo "
-                    "path's (phase 7a) and the training run's (phase 8), of "
-                    "which train_backward_launches inside backward passes"})
+                    "path's (phase 7a), the training run's (phase 8), of "
+                    "which train_backward_launches inside backward passes, "
+                    "the k-means CLI's (phase 11) and the attention "
+                    "trainer's CLI run (phase 12), of which "
+                    "attention_backward_launches inside backward passes"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

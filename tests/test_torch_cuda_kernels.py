@@ -9,7 +9,9 @@ prepared once against the call that prepares them (bitwise) and the
 preparation against its plain twin (bitwise), K2 at odd counts of pixel and
 Cout tiles, K3 at the few-block shapes of the edit path, and the backward
 of the three autograd Functions against autograd through the plain
-versions.
+versions (also at the region-attention trainer's shapes: K3's weight
+gradient at the mapper's attention convs, K1's style and demod gradients on
+a frozen weight).
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
 
@@ -235,6 +237,46 @@ def test_torch_cuda_modconv1x1_backward(dev):
                "noise_weight": r(1), "bias": r(3), "residual": r(2, 77, 3)}
     _check_grads(k3.modconv1x1, k3.modconv1x1_plain, tensors, {"act": False},
                  r(2, 77, 3))
+
+
+# the region-attention mapper's 1x1 attention convs at 1024², blending at
+# layer 8 (16²), batch 8: their weight is a trained parameter
+@pytest.mark.parametrize("p,cin,cout", [(16, 512, 32), (64, 512, 32), (256, 512, 32),
+                                        (256, 256, 32), (256, 128, 32), (256, 64, 32),
+                                        (256, 32, 32), (256, 576, 1)])
+def test_torch_cuda_modconv1x1_backward_weight_grad(dev, p, cin, cout):
+    g = torch.Generator(dev).manual_seed(p + cin + cout)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    b = 8
+    n3 = k3.launches
+    tensors = {"x": r(b, p, cin), "style": r(b, cin) / cin ** 0.5, "w": r(cin, cout),
+               "demod": r(b, cout).abs() + 0.5, "noise": r(b, p),
+               "noise_weight": r(1), "bias": r(cout)}
+    _check_grads(k3.modconv1x1, k3.modconv1x1_plain, tensors, {"act": False},
+                 r(b, p, cout))
+    assert k3.launches == n3 + 1  # the forward; the backward is plain
+
+
+# the frozen generator's K1 at the layers whose styles the mapper edits
+# (4²-16²), batch 8: style and demod gradients, no weight gradient
+@pytest.mark.parametrize("h", [4, 8, 16])
+def test_torch_cuda_modconv3x3_backward_frozen_weight(dev, h):
+    g = torch.Generator(dev).manual_seed(h)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    b, c = 8, 512
+    n1 = k1.launches
+    tensors = {"x": r(b, h, h, c), "style": r(b, c) / (9 * c) ** 0.5,
+               "demod": r(b, c).abs() + 0.5, "noise": r(b, h, h),
+               "noise_weight": r(1), "bias": r(c)}
+    _check_grads(k1.modconv3x3, k1.modconv3x3_plain, tensors,
+                 {"w": r(3, 3, c, c), "act": False}, r(b, h, h, c))
+    assert k1.launches == n1 + 2  # forward, then the input gradient
 
 
 def test_torch_cuda_wrappers_reject_bad_inputs(dev):

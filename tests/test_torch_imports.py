@@ -33,6 +33,15 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.models.irse", "where2edit_tpu_torch.models.encoders",
     "where2edit_tpu_torch.models.psp", "where2edit_tpu_torch.cli.common",
     "where2edit_tpu_torch.demo.gallery",
+    # k-means regions and region-attention training
+    "where2edit_tpu_torch.utils", "where2edit_tpu_torch.utils.native",
+    "where2edit_tpu_torch.utils.images", "where2edit_tpu_torch.utils.logging",
+    "where2edit_tpu_torch.utils.seed", "where2edit_tpu_torch.cli.run_clustering",
+    "where2edit_tpu_torch.models.vgg", "where2edit_tpu_torch.losses",
+    "where2edit_tpu_torch.losses.clip_loss", "where2edit_tpu_torch.losses.perceptual",
+    "where2edit_tpu_torch.losses.infonce", "where2edit_tpu_torch.train.lr",
+    "where2edit_tpu_torch.train.corpus", "where2edit_tpu_torch.train.attention_trainer",
+    "where2edit_tpu_torch.cli.run_attention",
 }
 
 
@@ -74,3 +83,15 @@ def test_torch_entry_points_need_a_card_unless_told(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_stylegan.main(["--synthetic", "2", "--size", "8", "--iter", "1"])
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_torch_training_entry_points_need_a_card_unless_told(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
+    from where2edit_tpu_torch.cli import run_attention, run_clustering  # noqa: PLC0415
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_clustering.main(["--stylegan_size", "8", "--results_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_attention.main(["--stylegan_size", "8", "--work_in_stylespace",
+                            "--use_cluster", "--results_dir", str(tmp_path)])

@@ -21,6 +21,7 @@ from torch import nn
 
 from where2edit_tpu_torch.models.irse import get_blocks
 from where2edit_tpu_torch.models.stylegan2 import channel_table
+from where2edit_tpu_torch.models.vgg import VGG16_CONVS
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel
 
 
@@ -155,22 +156,12 @@ def mapper_state_dict(variables: dict) -> dict:
     return sd
 
 
-def clip_text_state_dict(variables: dict) -> dict:
-    """``where2edit_tpu.models.clip_model`` CLIP (or TextTransformer)
-    variables → the port's ``TextTransformer`` state dict; the scanned
-    Transformer's blocks are stacked along axis 0 and come apart here."""
-    p = variables["params"]
-    p = p.get("text", p)
-    blk = p["transformer"]["blocks"]["blk"]
-    sd = {
-        "token_embedding.weight": _t(p["token_embedding"]),
-        "positional_embedding": _t(p["positional_embedding"]),
-        "ln_final.weight": _t(p["ln_final"]["scale"]),
-        "ln_final.bias": _t(p["ln_final"]["bias"]),
-        "text_projection": _t(p["text_projection"]),
-    }
+def _clip_blocks(blk: dict, prefix: str) -> dict:
+    """A scanned CLIP Transformer's blocks (stacked along axis 0) → the
+    OpenAI ``{prefix}.resblocks.{i}.*`` keys."""
+    sd = {}
     for i in range(np.asarray(blk["ln_1"]["scale"]).shape[0]):
-        pre = f"transformer.resblocks.{i}"
+        pre = f"{prefix}.resblocks.{i}"
         for ln in ("ln_1", "ln_2"):
             sd[f"{pre}.{ln}.weight"] = _t(blk[ln]["scale"][i])
             sd[f"{pre}.{ln}.bias"] = _t(blk[ln]["bias"][i])
@@ -183,6 +174,58 @@ def clip_text_state_dict(variables: dict) -> dict:
             d = blk[f"mlp_{name}"]
             sd[f"{pre}.mlp.{name}.weight"] = _lin_w(d["kernel"][i])
             sd[f"{pre}.mlp.{name}.bias"] = _t(d["bias"][i])
+    return sd
+
+
+def _ln(p: dict, prefix: str) -> dict:
+    return {f"{prefix}.weight": _t(p["scale"]), f"{prefix}.bias": _t(p["bias"])}
+
+
+def clip_text_state_dict(variables: dict) -> dict:
+    """``where2edit_tpu.models.clip_model`` CLIP (or TextTransformer)
+    variables → the port's ``TextTransformer`` state dict; the scanned
+    Transformer's blocks are stacked along axis 0 and come apart here."""
+    p = variables["params"]
+    p = p.get("text", p)
+    sd = {
+        "token_embedding.weight": _t(p["token_embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+        **_ln(p["ln_final"], "ln_final"),
+        "text_projection": _t(p["text_projection"]),
+    }
+    sd.update(_clip_blocks(p["transformer"]["blocks"]["blk"], "transformer"))
+    return sd
+
+
+def clip_state_dict(variables: dict) -> dict:
+    """``where2edit_tpu.models.clip_model.CLIP`` variables → the OpenAI
+    state dict the port's ``CLIP`` loads (the inverse of
+    ``where2edit_tpu/convert/clip.py::convert_clip_params``)."""
+    p = variables["params"]
+    v = p["visual"]
+    sd = clip_text_state_dict(variables)
+    sd.update({
+        "visual.conv1.weight": _conv_w(v["conv1_weight"]),
+        "visual.class_embedding": _t(v["class_embedding"]),
+        "visual.positional_embedding": _t(v["positional_embedding"]),
+        **_ln(v["ln_pre"], "visual.ln_pre"),
+        **_ln(v["ln_post"], "visual.ln_post"),
+        "visual.proj": _t(v["proj"]),
+        "logit_scale": _t(p["logit_scale"]),
+    })
+    sd.update(_clip_blocks(v["transformer"]["blocks"]["blk"], "visual.transformer"))
+    return sd
+
+
+def vgg16_state_dict(variables: dict) -> dict:
+    """``where2edit_tpu.models.vgg.Vgg16`` variables → torchvision's
+    ``features.{idx}.*`` keys (the inverse of
+    ``where2edit_tpu/convert/vgg.py::convert_vgg16_params``)."""
+    p = variables["params"]
+    sd = {}
+    for idx, _, _ in VGG16_CONVS:
+        sd[f"features.{idx}.weight"] = _conv_w(p[f"conv_{idx}"]["weight"])
+        sd[f"features.{idx}.bias"] = _t(p[f"conv_{idx}"]["bias"])
     return sd
 
 

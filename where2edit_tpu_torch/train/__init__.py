@@ -1,2 +1,3 @@
 """Training of the port (counterpart of where2edit_tpu/train): StyleGAN2
-adversarial training on one card."""
+adversarial training and region-attention mapper training, each on one
+card."""
