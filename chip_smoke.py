@@ -53,6 +53,22 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    kernel; more than ``MAX_EDIT_LAUNCHES`` launches per edit fail.
 7. whole   — the same seeded session at 256² on the card (kernels) and on
    the CPU (plain versions), from the same W+ and prompts.
+7c. wplus_edit — ``EditSession(work_in_stylespace=False)`` with the W+
+   production mapper ``FullSpaceMapperFEATClusterLin`` (attention and
+   cluster layer 13, seeded random weights) on phase 5's generator and text
+   tower: with the counters at 0, one capture, three edits and one 2-prompt
+   sweep (K1 as the S-space edit, K3 less its mapper's 19 attention convs:
+   the W+ trunk's convs are plain matmuls; no K1 weight preparation); the
+   p50 of 12 edits and the fenced stage split; 5 edits under
+   ``torch.profiler`` (as phase 6); card against CPU at 256² on phase 7's
+   sessions, at phase 7's bars.
+7d. server — ``demo/server.py``'s ``ThreadingHTTPServer`` on 127.0.0.1 (an
+   ephemeral port, in a thread) over a fresh 1024² S-space session: GET
+   ``/`` and ``/celebs``; the 400s of ``/invert`` without e4e, an unknown
+   gallery face and ``source=session`` before any face; then 8 seeded edit
+   requests with the counters at 0 (a capture and an edit each), over HTTP
+   when Pillow can encode the JPEGs, else through ``edit_request`` (the
+   route is printed); their p50 beside phases 5 and 7c.
 7a. invert — the real-photo path at full width: ``Encoder4Editing`` on the
    IR-SE50 trunk (stylegan_size 1024, 18 W+ rows, seeded random weights,
    1-D ``latent_avg`` = the generator's mean latent), saved as a
@@ -110,6 +126,20 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
 14. attention_whole — one step at 64² on the card and on the CPU from the
    same weights and draws, every mapper gradient unmasked: the loss terms
    (``TRAIN_LOSS_REL_TOL``) and the mapper's gradient (``TRAIN_*_GRAD_TOL``).
+14a. mapper_load — ``demo/app.py::load_session`` with ``--mapper`` at
+   1024² on a reference ``.pt`` (DDP ``module.`` keys, dead
+   ``mapper_textca_{c}`` entries), the same without ``initial_state``, and
+   phase 12's ``final_mapper.pt``: an edit equals, bitwise, that of a
+   session holding the same mapper in memory and differs from the random
+   mapper's; without centres the load succeeds and the edit refuses, as the
+   JAX mapper without its clusters collection does.
+14b. wplus_train — ``cli/run_attention.py --use_cluster`` in W+
+   (``FullSpaceMapperFEATClusterLin``) on phase 11's pickle, 1024², batch
+   8, 4 steps, with phase 12's probe and launch table (no K3 in the mapper
+   stage): ms per step over steps 1-3, stages, samples/s, peak memory (≤ 80
+   GB); ``FullSpaceMapperFEATLin`` and ``FullSpaceMapperFEATLinStyle`` for
+   2 steps at 256², batch 2; one W+ step at 64² card against CPU at phase
+   14's bars.
 15. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -121,6 +151,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import glob
+import importlib.util
 import json
 import math
 import os
@@ -129,8 +160,12 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from collections import defaultdict
+from http.server import ThreadingHTTPServer
 
 import numpy as np
 import torch
@@ -144,10 +179,21 @@ from where2edit_tpu_torch.cli.common import (
     mean_latent,
 )
 from where2edit_tpu_torch.cli.run_clustering import collect_features
+from where2edit_tpu_torch.demo import server as demo_server
+from where2edit_tpu_torch.demo.api import EditSession
 from where2edit_tpu_torch.demo.app import build_argparser as app_argparser
-from where2edit_tpu_torch.demo.app import build_session, load_psp
+from where2edit_tpu_torch.demo.app import (
+    build_models,
+    build_session,
+    load_psp,
+    load_session,
+)
+from where2edit_tpu_torch.demo.gallery import CelebGallery
 from where2edit_tpu_torch.editing.attention_mappers import (
+    FullSpaceMapperFEATClusterLin,
     FullSpaceMapperFEATClusterLinStyle,
+    FullSpaceMapperFEATLin,
+    FullSpaceMapperFEATLinStyle,
     attention_tables,
     tap_resolution,
 )
@@ -704,7 +750,49 @@ def check_edit(img, amap, batch):
     check(float(amap.min()) >= 0.0 and float(amap.max()) <= 1.0, "map in [0, 1]")
 
 
-def phase_slice() -> dict:
+# the device of the phases after 5 that build their own models ("cpu"
+# rehearses them at a small SIZE)
+DEV = "cuda"
+
+
+def sync() -> None:
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def fenced_stages(session, toks, att, reps: int = 10, captures: int = 5) -> dict:
+    """p50 ms of each stage of ``reps`` edits and of ``captures`` captures,
+    each fenced by ``torch.cuda.synchronize``."""
+    stages = defaultdict(list)
+
+    @contextlib.contextmanager
+    def fenced(stage):
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        stages[stage].append((time.perf_counter() - t0) * 1e3)
+
+    for _ in range(reps):
+        staged_edit(session, toks, att, fenced)
+    for _ in range(captures):
+        with fenced("capture"):
+            session.load_synthetic(7)
+    return {k: statistics.median(v) for k, v in stages.items()}
+
+
+def edit_latency(session, toks, att, n: int = 12) -> list:
+    lat = []
+    for _ in range(n):
+        sync()
+        t0 = time.perf_counter()
+        session.edit(toks, att)
+        sync()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return lat
+
+
+def phase_slice() -> tuple:
     t0 = time.perf_counter()
     session = build_session(SIZE, ATTENTION_LAYER, ATTENTION_LAYER, seed=0,
                             device="cuda")
@@ -763,31 +851,10 @@ def phase_slice() -> dict:
 
     # --- latency at batch 1, then the stage split ---
     toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
-    lat = []
-    for _ in range(12):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        session.edit(toks, att)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    stages = defaultdict(list)
-
-    @contextlib.contextmanager
-    def fenced(stage):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        yield
-        torch.cuda.synchronize()
-        stages[stage].append((time.perf_counter() - t0) * 1e3)
-
-    for _ in range(10):
-        staged_edit(session, toks, att, fenced)
-    for _ in range(5):
-        with fenced("capture"):
-            session.load_synthetic(7)
+    lat = edit_latency(session, toks, att)
     rec = {"phase": "slice", "step": "latency", "batch": 1, "edits": len(lat),
            "p50_edit_ms": statistics.median(lat), "edit_ms": lat,
-           "p50_stage_ms": {k: statistics.median(v) for k, v in stages.items()},
+           "p50_stage_ms": fenced_stages(session, toks, att),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            # inside that peak: K1's prepared weights, kept per layer
            "k1_prepared_cache_mib": sum(
@@ -795,7 +862,7 @@ def phase_slice() -> dict:
                if getattr(m, "_prepared", None) is not None
                and m._prepared[2] is not None) / 2 ** 20}
     emit(rec)
-    return launches, session
+    return launches, session, per_edit, rec["p50_edit_ms"]
 
 
 # ---------------------------------------------------------------------------
@@ -913,7 +980,8 @@ def whole_sessions(size: int) -> tuple:
     return cpu, gpu
 
 
-def phase_whole() -> None:
+def phase_whole() -> tuple:
+    """Returns the (CPU, card) sessions at 256²."""
     size = 256
     cpu, gpu = whole_sessions(size)
     wplus = cpu.sample_wplus(7)
@@ -939,6 +1007,223 @@ def phase_whole() -> None:
     check(cap_rel <= WHOLE_IMAGE_REL_TOL and img_rel <= WHOLE_IMAGE_REL_TOL,
           f"256² image card vs CPU: rel {cap_rel}, {img_rel}")
     check(map_err <= WHOLE_MAP_ABS_TOL, f"256² map card vs CPU: {map_err}")
+    return cpu, gpu
+
+
+# ---------------------------------------------------------------------------
+# phase 7c: the W+ edit (EditSession(work_in_stylespace=False))
+# ---------------------------------------------------------------------------
+
+def wplus_mapper(size: int, seed: int = 2) -> FullSpaceMapperFEATClusterLin:
+    """The production W+ mapper at attention and cluster layer 13, seeded
+    random weights drawn on the CPU, centres carrying position only."""
+    rng = torch.Generator().manual_seed(seed)
+    mapper = FullSpaceMapperFEATClusterLin(
+        layers=2 * int(math.log2(size)) - 2, attention_layer=ATTENTION_LAYER,
+        cluster_layer=ATTENTION_LAYER, generator_size=size, rng=rng)
+    pos = torch.rand(mapper.clusters, 2, generator=rng) * 2 - 1
+    width = mapper.initial_state.shape[1] - 64
+    with torch.no_grad():
+        mapper.initial_state.zero_()
+        mapper.initial_state[:, width:width + 32] = pos[:, :1]
+        mapper.initial_state[:, width + 32:] = pos[:, 1:]
+    return mapper.eval()
+
+
+def wplus_session(session, mapper) -> EditSession:
+    """A W+ session on ``session``'s generator and text tower."""
+    return EditSession(generator=session.generator,
+                       mapper=mapper.to(session.device),
+                       clip_encode_text=session.clip_encode_text,
+                       attention_layer=session.attention_layer,
+                       work_in_stylespace=False)
+
+
+def phase_wplus_edit(session, s_per_edit: tuple, whole: tuple, card: str) -> tuple:
+    """The W+ edit at 1024², batch 1: the main path with the counters at 0
+    (one capture, three edits, one 2-prompt sweep: K1 as the S-space edit,
+    K3 less the S-space mapper's attention convs, no K1 preparation), the
+    p50 of 12 edits and the fenced stage split; then card against CPU at
+    256² from phase 7's sessions. Returns ({kernel: launches}, p50 ms)."""
+    wsess = wplus_session(session, wplus_mapper(SIZE))
+    mapper_convs = len(session.mapper.layer_num) + 2
+    per_capture = (s_per_edit[0], s_per_edit[0])
+    per_edit = (s_per_edit[0], s_per_edit[1] - mapper_convs)
+
+    def expect(before, want, what):
+        got = tuple(a - b for a, b in zip(counts(), before))
+        check(got == (want[0], 0, want[1]),
+              f"{what}: launches (K1, K2, K3) +{got}, expected +({want[0]}, 0, {want[1]})")
+
+    k1.launches = k2.launches = k3.launches = 0
+    # --- the main path ---
+    before = counts()
+    img = wsess.load_synthetic(7)
+    sync()
+    check(tuple(img.shape) == (1, SIZE, SIZE, 3) and bool(torch.isfinite(img).all()),
+          "W+ captured image")
+    check(tuple(wsess.latent.shape) == (1, session.generator.n_latent, 512),
+          "the W+ session keeps the W+")
+    expect(before, per_capture, "W+ load_synthetic")
+    for prompt, att, _, thr in PROMPTS:
+        before, prepares = counts(), k1.prepares
+        img, amap = wsess.edit(tokenize([prompt]), tokenize([att]),
+                               attention_threshold=thr)
+        sync()
+        check_edit(img, amap, 1)
+        check(amap.shape[1] == tap_resolution(ATTENTION_LAYER),
+              f"W+ map at the cluster tap's size, {tuple(amap.shape)}")
+        expect(before, per_edit, f"W+ edit {prompt!r}")
+        check(k1.prepares == prepares, f"W+ edit {prompt!r} prepared K1 weights")
+    before = counts()
+    img, amap = wsess.edit(tokenize([p[0] for p in PROMPTS[:2]]),
+                           tokenize([p[1] for p in PROMPTS[:2]]))
+    sync()
+    check_edit(img, amap, 2)
+    expect(before, per_edit, "W+ 2-prompt sweep")
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    emit({"phase": "wplus_edit", "step": "main_path", "card": card,
+          "mapper": "FullSpaceMapperFEATClusterLin", "edits": len(PROMPTS),
+          "sweeps": 1, "launches": launches, "per_capture": per_capture,
+          "per_edit": per_edit, "s_space_per_edit": list(s_per_edit),
+          "map_shape": list(amap.shape)})
+
+    # --- latency at batch 1, the stage split ---
+    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
+    lat = edit_latency(wsess, toks, att)
+    p50 = statistics.median(lat)
+    emit({"phase": "wplus_edit", "step": "latency", "card": card, "batch": 1,
+          "edits": len(lat), "p50_edit_ms": p50, "edit_ms": lat,
+          "p50_stage_ms": fenced_stages(wsess, toks, att)})
+    if DEV == "cuda":
+        rec = device_profile(lambda span: staged_edit(wsess, toks, att, span),
+                             STAGES, 5)
+        emit({"phase": "wplus_edit", "step": "profile", "card": card, "edits": 5,
+              **{k: v for k, v in rec.items() if k != "top_kernels"},
+              "top_kernels": rec["top_kernels"][:10]})
+
+    # --- card against CPU at 256², phase 7's sessions and W+ ---
+    cpu, gpu = (wplus_session(sess, wplus_mapper(256)) for sess in whole)
+    wplus = cpu.sample_wplus(7)
+    n = counts()
+    cpu.load_latent(wplus)
+    gpu.load_latent(wplus.to(gpu.device))
+    img_c, map_c = cpu.edit(toks, att)
+    img_g, map_g = gpu.edit(toks, att)
+    sync()
+    per_pass = 1 + len(gpu.generator.to_rgbs)
+    got = tuple(a - b for a, b in zip(counts(), n))
+    check(got == (2 * per_pass, 0, 2 * per_pass),
+          f"the card's 256² W+ session ran on the kernels: {got}")
+    img_err, img_rel = rel_err(img_g.cpu(), img_c)
+    map_err = float((map_g.cpu() - map_c).abs().max())
+    emit({"phase": "wplus_edit", "step": "whole", "size": 256,
+          "image_max_abs_err": img_err, "image_rel_err": img_rel,
+          "map_max_abs_err": map_err, "map_mean": float(map_c.mean()),
+          "image_rel_tol": WHOLE_IMAGE_REL_TOL, "map_abs_tol": WHOLE_MAP_ABS_TOL})
+    check(img_rel <= WHOLE_IMAGE_REL_TOL, f"256² W+ image card vs CPU: rel {img_rel}")
+    check(map_err <= WHOLE_MAP_ABS_TOL, f"256² W+ map card vs CPU: {map_err}")
+    return launches, p50
+
+
+# ---------------------------------------------------------------------------
+# phase 7d: the web demo (demo/server.py) over HTTP on localhost
+# ---------------------------------------------------------------------------
+
+SERVER_REQUESTS = 8
+
+
+def _http(url: str, body=None) -> tuple:
+    """(status, parsed body) of a GET (``body`` None) or a JSON POST."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            raw, code, ctype = r.read(), r.status, r.headers["Content-Type"]
+    except urllib.error.HTTPError as e:
+        raw, code, ctype = e.read(), e.code, e.headers["Content-Type"]
+    return code, (json.loads(raw) if ctype == "application/json" else raw)
+
+
+def phase_server(session, card: str, p50s: dict) -> dict:
+    """``demo/server.py``'s ``ThreadingHTTPServer`` on 127.0.0.1 (an
+    ephemeral port, in a thread) over a fresh S-space session on phase 5's
+    1024² models: GET ``/`` and ``/celebs``, the 400s (``/invert`` without
+    e4e, an unknown gallery face, ``source=session`` before any face), then
+    8 seeded edit requests with the counters at 0 (a capture and an edit
+    each) over HTTP when Pillow can encode the JPEGs, else through
+    ``edit_request``. Returns {kernel: launches}."""
+    srv = EditSession(generator=session.generator, mapper=session.mapper,
+                      clip_encode_text=session.clip_encode_text,
+                      attention_layer=session.attention_layer)
+    gallery = CelebGallery(srv)
+    lock = threading.Lock()
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), demo_server.make_handler(
+        srv, lock, gallery, None))
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    route = "http" if importlib.util.find_spec("PIL") else "edit_request"
+    try:
+        code, page = _http(url + "/")
+        check(code == 200 and b"/edit" in page, f"GET /: {code}")
+        code, body = _http(url + "/celebs")
+        check(code == 200 and body["celebs"] == gallery.names(), f"GET /celebs: {code}")
+        errors = {}
+        for name, path, req in (
+                ("invert_without_e4e", "/invert", {"image": ""}),
+                ("unknown_celeb", "/edit", {"celeb": "Nobody", "prompt": "x"}),
+                ("session_before_face", "/edit", {"source": "session", "prompt": "x"})):
+            code, body = _http(url + path, req)
+            check(code == 400 and "error" in body, f"POST {path} {name}: {code} {body}")
+            errors[name] = code
+        per_pass = 1 + len(session.generator.to_rgbs)
+        per_request = (2 * per_pass, 0,
+                       2 * per_pass + len(session.mapper.layer_num) + 2)
+        k1.launches = k2.launches = k3.launches = 0
+        # --- the main path: 8 edit requests, each a seeded face and a prompt ---
+        ms, server_ms = [], []
+        for i in range(SERVER_REQUESTS):
+            prompt, region = PROMPTS[i % len(PROMPTS)][0], "hair"
+            req = {"seed": i, "prompt": prompt, "region": region,
+                   "strength": 0.1, "coverage": 0.5}
+            before = counts()
+            t0 = time.perf_counter()
+            if route == "http":
+                code, body = _http(url + "/edit", req)
+                check(code == 200 and all(body[k] for k in ("original", "edited",
+                                                            "attention")),
+                      f"POST /edit {i}: {code}")
+                server_ms.append(body["ms"])
+            else:
+                with lock:
+                    original, edited, amap, t_ms = demo_server.edit_request(
+                        srv, req, gallery)
+                check_edit(edited, amap, 1)
+                check(tuple(original.shape) == (1, SIZE, SIZE, 3), "request original")
+                server_ms.append(t_ms)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            got = tuple(a - b for a, b in zip(counts(), before))
+            check(got == per_request, f"request {i}: launches {got}, "
+                                      f"expected {per_request}")
+        launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                    "modconv1x1": k3.launches}
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    emit({"phase": "server", "card": card, "route": route, "size": SIZE,
+          "requests": SERVER_REQUESTS, "status_400": errors, "launches": launches,
+          "per_request": per_request, "request_ms": ms,
+          "p50_request_ms": statistics.median(ms),
+          "p50_handler_ms": statistics.median(server_ms),
+          "p50_edit_ms_phase5": p50s["s_space"], "p50_edit_ms_wplus": p50s["wplus"],
+          "note": "a request loads a seeded face (capture) and edits it; "
+                  "request_ms is the client's wall time, handler_ms the "
+                  "server's (before the JPEG encoding)"})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1398,8 +1683,6 @@ def phase_train_whole() -> None:
 # phase 11: k-means regions at full width (cli/run_clustering.py)
 # ---------------------------------------------------------------------------
 
-# the device of phases 11-14 ("cpu" rehearses them at a small SIZE)
-DEV = "cuda"
 CLUSTER_LAYER, N_CLUSTERS, CLUSTER_STEPS = 13, 10, 4
 LLOYD_STEPS, LLOYD_ITERS, LLOYD_SUBSAMPLE = 20, 50, 65536
 # Lloyd, card against CPU, each iteration from the CPU's centres of the one
@@ -1410,11 +1693,6 @@ LLOYD_STEPS, LLOYD_ITERS, LLOYD_SUBSAMPLE = 20, 50, 65536
 # row that close to two centres can take the other one (its centre's mean
 # moves by ~1/count of the row's offset).
 KMEANS_REL_TOL = 1e-3
-
-
-def sync() -> None:
-    if DEV == "cuda":
-        torch.cuda.synchronize()
 
 
 def cluster_args() -> list:
@@ -1590,9 +1868,9 @@ class AttentionProbe:
                 check(want <= moved, f"step 1: did not move {sorted(want - moved)[:5]}")
 
 
-def phase_attention(card: str, cluster_path: str) -> tuple:
+def phase_attention(card: str, cluster_path: str, keep_dir: str) -> tuple:
     """Returns ({kernel: launches}, {kernel: launches in backward passes},
-    the trainer)."""
+    the trainer, its final checkpoint copied into ``keep_dir``)."""
     probe = AttentionProbe()
     if DEV == "cuda":
         torch.cuda.empty_cache()
@@ -1613,6 +1891,7 @@ def phase_attention(card: str, cluster_path: str) -> tuple:
         losses = [r["value"] for r in read_scalars(log_dir) if r["tag"] == "loss/loss"]
         ckpt_path = os.path.join(out_dir, "final_mapper.pt")
         check(os.path.isfile(ckpt_path), "no final checkpoint")
+        kept = shutil.copy(ckpt_path, keep_dir)
         resumed = run_attention.main(args[:-1] + [os.path.join(results, "resumed"),
                                                   "--resume", ckpt_path])
         a = torch.load(ckpt_path, map_location="cpu", weights_only=True)
@@ -1651,7 +1930,8 @@ def phase_attention(card: str, cluster_path: str) -> tuple:
           "note": "steps 1-5 (step 0 builds cuDNN plans and caches), each "
                   "stage fenced by torch.cuda.synchronize"})
     n_steps = 1 + max(s for s, *_ in probe.records)
-    return (launches, dict(zip(launches, (n * n_steps for n in backward))), trainer)
+    return (launches, dict(zip(launches, (n * n_steps for n in backward))), trainer,
+            kept)
 
 
 def phase_attention_profile(trainer, card: str) -> None:
@@ -1672,21 +1952,23 @@ def phase_attention_profile(trainer, card: str) -> None:
           "losses": {k: float(v) for k, v in out["aux"].items()}, **rec})
 
 
-def attention_parts(size: int, device: str, seed: int = 0) -> tuple:
+def attention_parts(size: int, device: str, seed: int = 0,
+                    wplus: bool = False) -> tuple:
     """(generator, mapper, CLIP loss, perceptual loss) at ``size`` with
-    seeded random weights, full-width CLIP ViT-B/32 and VGG16; the mapper's
-    centres carry no feature part (only position), so every pixel's region
-    is set by geometry alone and the card and the CPU cannot split a
-    near-tie two ways."""
+    seeded random weights, full-width CLIP ViT-B/32 and VGG16; the S-space
+    production mapper, or with ``wplus`` the W+ one. The mapper's centres
+    carry no feature part (only position), so every pixel's region is set
+    by geometry alone and the card and the CPU cannot split a near-tie two
+    ways."""
     rng = torch.Generator().manual_seed(seed)
     gen = Generator(size, rng=rng)
     with torch.no_grad():  # non-zero noise gains, so the noise path counts
         for name, p in gen.named_parameters():
             if name.endswith("noise.weight"):
                 p.copy_(0.1 * torch.randn(1, generator=rng))
-    mapper = FullSpaceMapperFEATClusterLinStyle(
-        layers=gen.n_latent, attention_layer=TRAIN_ATTENTION_LAYER,
-        cluster_layer=CLUSTER_LAYER, generator_size=size, rng=rng)
+    cls = FullSpaceMapperFEATClusterLin if wplus else FullSpaceMapperFEATClusterLinStyle
+    mapper = cls(layers=gen.n_latent, attention_layer=TRAIN_ATTENTION_LAYER,
+                 cluster_layer=CLUSTER_LAYER, generator_size=size, rng=rng)
     pos = torch.rand(N_CLUSTERS, 2, generator=rng) * 2 - 1
     with torch.no_grad():
         mapper.initial_state.zero_()
@@ -1698,20 +1980,20 @@ def attention_parts(size: int, device: str, seed: int = 0) -> tuple:
     return gen, mapper, CLIPLoss(clip, size), PerceptualLoss(vgg, size)
 
 
-def phase_attention_whole() -> None:
+def attention_whole(wplus: bool = False) -> dict:
     """One training step at 64² on the card and on the CPU from the same
     weights and draws, every mapper gradient unmasked
-    (``freeze_attention_until`` 0): each loss term within
-    ``TRAIN_LOSS_REL_TOL``, the mapper's gradient within
+    (``freeze_attention_until`` 0), in S-space or (``wplus``) in W+: each
+    loss term within ``TRAIN_LOSS_REL_TOL``, the mapper's gradient within
     ``TRAIN_MODEL_GRAD_TOL`` (whole model) and ``TRAIN_PARAM_GRAD_TOL`` (per
-    tensor)."""
+    tensor). Returns the record."""
     size, batch, step_idx = 64, 4, 60
     cfg = AttentionTrainConfig(stylegan_size=size, attention_layer=TRAIN_ATTENTION_LAYER,
                                cluster_layer=CLUSTER_LAYER, batch_size=batch,
-                               step=300, work_in_stylespace=True,
+                               step=300, work_in_stylespace=not wplus,
                                freeze_attention_until=0.0)
-    cpu_parts = attention_parts(size, "cpu")
-    gpu_parts = attention_parts(size, DEV)
+    cpu_parts = attention_parts(size, "cpu", wplus=wplus)
+    gpu_parts = attention_parts(size, DEV, wplus=wplus)
     g = torch.Generator().manual_seed(5)
     draws = Draws(torch.randn(batch, 512, generator=g), torch.randn(batch, 512, generator=g),
                   torch.randint(0, 7, (batch,), generator=g))
@@ -1742,16 +2024,242 @@ def phase_attention_whole() -> None:
         if e > worst:
             worst, worst_name = e, name
     model_rel = math.sqrt(diff2 / ref2)
-    emit({"phase": "attention_whole", "size": size, "batch": batch, "step_idx": step_idx,
-          "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
-          "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
-          "worst_param": worst_name, "card_launches": launches,
-          "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
-          "model_grad_tol": TRAIN_MODEL_GRAD_TOL})
+    rec = {"size": size, "batch": batch, "step_idx": step_idx,
+           "mapper": type(gpu_parts[1]).__name__,
+           "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
+           "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
+           "worst_param": worst_name, "card_launches": launches,
+           "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
+           "model_grad_tol": TRAIN_MODEL_GRAD_TOL}
+    what = "W+ attention" if wplus else "attention"
     bad = {k: v for k, v in loss_rel.items() if not v <= TRAIN_LOSS_REL_TOL}
-    check(not bad, f"64² attention step losses: {bad}")
-    check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² mapper grads: rel {model_rel}")
-    check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² mapper {worst_name}: rel {worst}")
+    check(not bad, f"64² {what} step losses: {bad}")
+    check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² {what} mapper grads: rel {model_rel}")
+    check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {what} mapper {worst_name}: rel {worst}")
+    return rec
+
+
+def phase_attention_whole() -> None:
+    emit({"phase": "attention_whole", **attention_whole()})
+
+
+# ---------------------------------------------------------------------------
+# phase 14a: trained mappers loaded through --mapper (demo/app.py)
+# ---------------------------------------------------------------------------
+
+def reference_mapper_files(tmp: str) -> tuple:
+    """A seeded S-space mapper (attention and cluster layer 13, centres
+    carrying position) written as a DDP reference ``.pt`` with dead
+    ``mapper_textca_{c}`` entries, and as the same file without
+    ``initial_state``. Returns (the mapper, {name: path})."""
+    rng = torch.Generator().manual_seed(3)
+    mapper = FullSpaceMapperFEATClusterLinStyle(
+        layers=2 * int(math.log2(SIZE)) - 2, attention_layer=ATTENTION_LAYER,
+        cluster_layer=ATTENTION_LAYER, generator_size=SIZE, rng=rng)
+    pos = torch.rand(mapper.clusters, 2, generator=rng) * 2 - 1
+    with torch.no_grad():
+        mapper.initial_state.zero_()
+        mapper.initial_state[:, 512:544] = pos[:, :1]
+        mapper.initial_state[:, 544:] = pos[:, 1:]
+    ref = {f"module.{k}": v for k, v in mapper.state_dict().items()}
+    for c in range(mapper.mapper_layer):
+        ref[f"module.mapper_textca_{c}.fc.weight"] = torch.randn(256, 512, generator=rng)
+        ref[f"module.mapper_textca_{c}.fc.bias"] = torch.zeros(256)
+    paths = {"reference_ddp": os.path.join(tmp, "mapper_ddp.pt"),
+             "no_initial_state": os.path.join(tmp, "mapper_no_centres.pt")}
+    torch.save(ref, paths["reference_ddp"])
+    torch.save({k: v for k, v in ref.items() if not k.endswith("initial_state")},
+               paths["no_initial_state"])
+    return mapper.eval(), paths
+
+
+def phase_mapper_load(card: str, final_path: str) -> dict:
+    """A reference ``.pt`` (DDP keys and CA_NET entries), the same without
+    ``initial_state`` and phase 12's ``final_mapper.pt``, each through
+    ``demo/app.py::load_session`` with ``--mapper`` at 1024²: an edit equals,
+    bitwise, the edit of a session that holds the same mapper in memory
+    (its weights loaded by plain ``load_state_dict``) on the same generator,
+    and differs from the random mapper's edit; the file without centres
+    loads and its edit refuses, as the JAX mapper without its clusters
+    collection does. Counters at 0 before. Returns {kernel: launches}."""
+    toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
+    records = {}
+    # cuDNN's transposed conv (its backward-data) may take an algorithm
+    # that sums with atomics: two runs of one edit then differ in the last
+    # bits. Deterministic algorithms make the bitwise comparison possible.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    k1.launches = k2.launches = k3.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        source, paths = reference_mapper_files(tmp)
+        final = torch.load(final_path, map_location="cpu", weights_only=True)["mapper"]
+        trained = FullSpaceMapperFEATClusterLinStyle(
+            layers=source.layers, attention_layer=TRAIN_ATTENTION_LAYER,
+            cluster_layer=CLUSTER_LAYER, generator_size=SIZE,
+            clusters=final["initial_state"].shape[0],
+            cluster_dim=final["initial_state"].shape[1])
+        trained.load_state_dict(final)
+        files = [("reference_ddp", paths["reference_ddp"], ATTENTION_LAYER, source),
+                 ("no_initial_state", paths["no_initial_state"], ATTENTION_LAYER, source),
+                 ("final_mapper", final_path, TRAIN_ATTENTION_LAYER, trained.eval())]
+        for name, path, layer, held_mapper in files:
+            args = app_argparser().parse_args([
+                "--stylegan_size", str(SIZE), "--attention_layer", str(layer),
+                "--cluster_layer", str(CLUSTER_LAYER), "--mapper", path,
+                "--ckpt", "/nonexistent", "--device", DEV])
+            t0 = time.perf_counter()
+            loaded = load_session(args)
+            sync()
+            rec = {"attention_layer": layer, "load_s": time.perf_counter() - t0,
+                   "file_mib": os.path.getsize(path) / 2 ** 20}
+
+            def edit(sess):
+                sess.load_synthetic(7)
+                out = sess.edit(toks, att)
+                sync()
+                return out
+
+            if name == "no_initial_state":
+                check(loaded.mapper.initial_state is None, "no centres after the load")
+                try:
+                    edit(loaded)
+                    refused = None
+                except RuntimeError as e:
+                    refused = str(e)
+                check(refused is not None and "no k-means centres" in refused,
+                      f"an edit without centres ran or failed otherwise: {refused}")
+                rec["edit_refused"] = refused
+            else:
+                img, amap = edit(loaded)
+                check_edit(img, amap, 1)
+                again, _ = edit(loaded)
+                rec["repeat_bitwise_equal"] = bool(torch.equal(img, again))
+                held = EditSession(generator=loaded.generator,
+                                   mapper=held_mapper.to(DEV),
+                                   clip_encode_text=loaded.clip_encode_text,
+                                   attention_layer=layer)
+                img_h, map_h = edit(held)
+                random_mapper = build_models(SIZE, layer, CLUSTER_LAYER)[1]
+                rand = EditSession(generator=loaded.generator,
+                                   mapper=random_mapper.to(DEV).eval(),
+                                   clip_encode_text=loaded.clip_encode_text,
+                                   attention_layer=layer)
+                img_r, _ = edit(rand)
+                rec["bitwise_equal_to_held"] = bool(torch.equal(img, img_h)
+                                                    and torch.equal(amap, map_h))
+                rec["image_max_abs_vs_held"] = float((img - img_h).abs().max())
+                rec["map_max_abs_vs_held"] = float((amap - map_h).abs().max())
+                rec["image_max_abs_vs_random"] = float((img - img_r).abs().max())
+                del held, rand, random_mapper
+            records[name] = rec
+            emit({"phase": "mapper_load", "file": name, **rec})
+            if name != "no_initial_state":
+                check(rec["bitwise_equal_to_held"],
+                      f"{name}: the loaded mapper's edit is not the held one's")
+                check(rec["image_max_abs_vs_random"] > 0,
+                      f"{name}: the loaded mapper's edit equals the random one's")
+            del loaded
+            if DEV == "cuda":
+                torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = deterministic
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    emit({"phase": "mapper_load", "card": card, "size": SIZE, "files": records,
+          "launches": launches, "cudnn_deterministic": True})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14b: the W+ mapper family trained through cli/run_attention.py
+# ---------------------------------------------------------------------------
+
+WPLUS_STEPS = 4
+BRANCH_SIZE, BRANCH_BATCH, BRANCH_STEPS = 256, 2, 2
+
+
+def run_attention_probed(args: list, steps: int) -> tuple:
+    """``run_attention.main(args)`` with an ``AttentionProbe`` (phase 12's
+    checks), its launches per stage held to ``attention_launches`` with no
+    K3 in the mapper stage (these mappers' convs are plain), and finite
+    losses. Returns (probe, losses, {kernel: launches})."""
+    probe = AttentionProbe()
+    k1.launches = k2.launches = k3.launches = 0
+    with tempfile.TemporaryDirectory() as results:
+        run_attention.main([*args, "--save_intermediate_image_every", "0",
+                            "--device", DEV, "--results_dir", results], span=probe)
+        (log_dir,) = glob.glob(os.path.join(results, "logs", "*"))
+        losses = [r["value"] for r in read_scalars(log_dir) if r["tag"] == "loss/loss"]
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    check(len(losses) == steps and all(map(math.isfinite, losses)), f"losses {losses}")
+    expect = attention_launches(probe.trainer.generator.log_size - 2, 0)
+    for step, stage, _, got, prep in probe.records:
+        check(got == expect[stage], f"step {step} {stage}: launches {got}, "
+                                    f"expected {expect[stage]}")
+        check(prep == 0, f"step {step} {stage}: {prep} K1 weight preparations")
+    return probe, losses, launches
+
+
+def phase_wplus_train(card: str, cluster_path: str) -> dict:
+    """``cli/run_attention.py --use_cluster`` without
+    ``--work_in_stylespace`` (the W+ production mapper) on phase 11's pickle
+    at 1024², batch 8, 4 steps (step 0 at lr 0): ms per step over steps
+    1-3 and its stages, samples/s, peak memory (≤ 80 GB), launches per step
+    by stage. Then ``FullSpaceMapperFEATLin`` and
+    ``FullSpaceMapperFEATLinStyle`` for 2 steps each at 256², batch 2, and
+    one W+ step card against CPU at 64² (phase 14's bars). Returns
+    {kernel: launches} of the 1024² run."""
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    probe, losses, launches = run_attention_probed(
+        ["--stylegan_size", str(SIZE), "--use_cluster", "--cluster_path", cluster_path,
+         "--batch_size", str(ATTENTION_BATCH), "--step", str(WPLUS_STEPS)], WPLUS_STEPS)
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    trainer = probe.trainer
+    check(isinstance(trainer.mapper, FullSpaceMapperFEATClusterLin)
+          and not trainer.cfg.work_in_stylespace, "the W+ cluster mapper trained")
+    check(peak <= 80e9, f"peak {peak / 2 ** 30:.2f} GiB")
+    unchanged = [n for n, p in trainer.mapper.named_parameters()
+                 if is_attention_param(n) and not torch.equal(p, probe.start[n])]
+    check(not unchanged, f"frozen attention parameters moved: {unchanged[:5]}")
+    stage_ms, step_ms = defaultdict(list), defaultdict(float)
+    for step, stage, ms, _, _ in probe.records:
+        if step >= 1:
+            stage_ms[stage].append(ms)
+            step_ms[step] += ms
+    per_step = [step_ms[s] for s in sorted(step_ms)]
+    expect = attention_launches(trainer.generator.log_size - 2, 0)
+    emit({"phase": "wplus_train", "step": "main_path", "card": card, "size": SIZE,
+          "batch": ATTENTION_BATCH, "steps": WPLUS_STEPS,
+          "mapper": type(trainer.mapper).__name__,
+          "attention_layer": trainer.cfg.attention_layer,
+          "cluster_layer": trainer.cfg.cluster_layer, "losses": losses,
+          "launches": launches,
+          "launches_per_step": {k: v for k, v in expect.items() if any(v)},
+          "step_ms": per_step, "mean_step_ms": statistics.mean(per_step),
+          "stage_ms_mean": {k: statistics.mean(v) for k, v in stage_ms.items()},
+          "samples_per_s": ATTENTION_BATCH * len(per_step) / (sum(per_step) / 1e3),
+          "peak_mem_gib": peak / 2 ** 30,
+          "note": "steps 1-3 (step 0 builds cuDNN plans and caches), each stage "
+                  "fenced by torch.cuda.synchronize"})
+    del probe, trainer
+    branches = {}
+    for flags, cls in (((), FullSpaceMapperFEATLin),
+                       (("--work_in_stylespace",), FullSpaceMapperFEATLinStyle)):
+        t0 = time.perf_counter()
+        probe, losses, got = run_attention_probed(
+            ["--stylegan_size", str(BRANCH_SIZE), *flags, "--batch_size",
+             str(BRANCH_BATCH), "--step", str(BRANCH_STEPS)], BRANCH_STEPS)
+        check(type(probe.trainer.mapper) is cls, f"{cls.__name__} trained")
+        branches[cls.__name__] = {"flags": list(flags), "losses": losses,
+                                  "launches": got,
+                                  "wall_s": time.perf_counter() - t0}
+    whole = attention_whole(wplus=True)
+    emit({"phase": "wplus_train", "step": "branches", "card": card,
+          "size": BRANCH_SIZE, "batch": BRANCH_BATCH, "steps": BRANCH_STEPS,
+          "branches": branches, "whole_64": whole})
+    return launches
 
 
 def main(argv=None) -> None:
@@ -1766,9 +2274,13 @@ def main(argv=None) -> None:
         phase_build()
         totals = phase_kernels()
         train_fwd_err, backward_err = phase_backward()
-        edit_launches, session = phase_slice()
+        edit_launches, session, s_per_edit, s_p50 = phase_slice()
         phase_profile(session, card)
-        phase_whole()
+        whole = phase_whole()
+        wplus_launches, wplus_p50 = phase_wplus_edit(session, s_per_edit, whole, card)
+        del whole
+        server_launches = phase_server(session, card,
+                                       {"s_space": s_p50, "wplus": wplus_p50})
         invert_launches, psp, ckpt, x1 = phase_invert(session, card)
         del session
         phase_invert_whole(psp, ckpt, x1)
@@ -1779,12 +2291,14 @@ def main(argv=None) -> None:
         phase_train_whole()
         with tempfile.TemporaryDirectory() as keep:
             cluster_launches, cluster_path = phase_cluster(card, keep)
-            attention_run, attention_backward, trainer = phase_attention(
-                card, cluster_path)
-        phase_attention_profile(trainer, card)
-        del trainer
-        torch.cuda.empty_cache()
-        phase_attention_whole()
+            attention_run, attention_backward, trainer, final_path = phase_attention(
+                card, cluster_path, keep)
+            phase_attention_profile(trainer, card)
+            del trainer
+            torch.cuda.empty_cache()
+            phase_attention_whole()
+            load_launches = phase_mapper_load(card, final_path)
+            wplus_train_launches = phase_wplus_train(card, cluster_path)
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -1809,9 +2323,12 @@ def main(argv=None) -> None:
     kernels = []
     for name, (src, replaces) in sources.items():
         tot = totals[name]
-        by_path = {"edit": edit_launches.get(name, 0), "invert": invert_launches[name],
+        by_path = {"edit": edit_launches.get(name, 0),
+                   "wplus_edit": wplus_launches[name], "server": server_launches[name],
+                   "invert": invert_launches[name],
                    "train": train_launches_run[name], "cluster": cluster_launches[name],
-                   "attention": attention_run[name]}
+                   "attention": attention_run[name], "mapper_load": load_launches[name],
+                   "wplus_train": wplus_train_launches[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -1844,12 +2361,15 @@ def main(argv=None) -> None:
                     "3xTF32 tensor-core rate for modconv3x3 and conv3x3 "
                     "(fma_bound_ms at the fp32 FMA rate), at the fp32 FMA "
                     "rate for modconv1x1; "
-                    "launches: the edit path's run (phase 5), the real-photo "
-                    "path's (phase 7a), the training run's (phase 8), of "
-                    "which train_backward_launches inside backward passes, "
-                    "the k-means CLI's (phase 11) and the attention "
+                    "launches: the edit path's run (phase 5), the W+ edit's "
+                    "(phase 7c), the web demo's requests (phase 7d), the "
+                    "real-photo path's (phase 7a), the training run's (phase "
+                    "8), of which train_backward_launches inside backward "
+                    "passes, the k-means CLI's (phase 11), the attention "
                     "trainer's CLI run (phase 12), of which "
-                    "attention_backward_launches inside backward passes"})
+                    "attention_backward_launches inside backward passes, "
+                    "the --mapper loads' edits (phase 14a) and the W+ "
+                    "trainer's 1024² CLI run (phase 14b)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ ramps are on: every loss term within 1e-4 relative, the mapper's gradient
 within 1e-3 relative L2 for the whole model and 5e-2 per tensor, with
 ``freeze_attention_until=0.0`` on both sides for the unmasked gradients.
 
+The same for the W+ branch (``work_in_stylespace=False``: the mapper on the
+target's W+, ``latent + delta``, the synthesis from the new W+), with the
+production W+ mapper and its cluster-free twin.
+
 Then the port alone, with a pooled stand-in for VGG16 where the test is of
 the loop and not of the losses: the freeze mask and the lr of 0 at step 0,
 Adam against ``optax.adam`` at counts 0, 1 and 60 (1e-6), the NaN guard's
@@ -77,6 +81,27 @@ def test_torch_attention_step_matches_jax(models):
     assert img.shape == (ATT_BATCH, ATT_SIZE, ATT_SIZE, 3)
     assert amap.shape == (ATT_BATCH, 16, 16, 1)
     assert all(aux_j[k] != 0.0 for k in ("consist", "perceptual", "delta", "reg", "tv"))
+    compare_attention_step(aux_t, aux_j, tr, grads_j)
+
+
+@pytest.mark.parametrize("mapper", ["FullSpaceMapperFEATClusterLin",
+                                    "FullSpaceMapperFEATLin"])
+def test_torch_attention_wplus_step_matches_jax(mapper):
+    m = attention_models(mapper)
+    key = jax.random.PRNGKey(12)
+    bank = _bank(6)
+    aux_j, grads_j = jax_attention_step(m, key, STEP_IDX, bank)
+    tr = attention_trainer(m, freeze=0.0)
+    aux_t, img, amap = tr.step_with(jax_attention_draws(key), STEP_IDX, t(bank))
+    assert img.shape == (ATT_BATCH, ATT_SIZE, ATT_SIZE, 3)
+    # the cluster mapper's map is at its cluster tap's size (32²), the
+    # other's at the blend size (16²)
+    side = 32 if mapper.endswith("ClusterLin") else 16
+    assert amap.shape == (ATT_BATCH, side, side, 1)
+    assert all(aux_j[k] != 0.0 for k in ("consist", "perceptual", "delta", "reg", "tv"))
+    assert any(n.startswith("attention_first") for n in tr.param_names)
+    assert all(is_attention_param(n) == n.startswith("attention")
+               for n in tr.param_names)
     compare_attention_step(aux_t, aux_j, tr, grads_j)
 
 

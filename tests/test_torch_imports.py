@@ -42,6 +42,8 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.losses.infonce", "where2edit_tpu_torch.train.lr",
     "where2edit_tpu_torch.train.corpus", "where2edit_tpu_torch.train.attention_trainer",
     "where2edit_tpu_torch.cli.run_attention",
+    # trained mappers served: the W+ family, the ablation nets, the server
+    "where2edit_tpu_torch.editing.modules", "where2edit_tpu_torch.demo.server",
 }
 
 
@@ -51,7 +53,7 @@ def test_torch_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, names = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 31
+    assert int(count) >= 33
     assert bad == "[]"
     assert NEW_MODULES <= set(names.split())
 
@@ -80,6 +82,10 @@ def test_torch_entry_points_need_a_card_unless_told(tmp_path):
             refused()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         edit.main(["--text", "grey hair", "--stylegan_size", "32"])
+    from where2edit_tpu_torch.demo import server  # noqa: PLC0415
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        server.main(["--stylegan_size", "32", "--port", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_stylegan.main(["--synthetic", "2", "--size", "8", "--iter", "1"])
     assert resolve_device("cpu") == torch.device("cpu")

@@ -4,8 +4,9 @@ run of the production mapper (grids, ``video.txt``, checkpoints, the source
 snapshot, the own-phrase renders) with ``--clip_ckpt`` and ``--vgg_ckpt``
 files in the reference layouts (a small OpenAI-layout CLIP, a torchvision
 VGG16); a SIGTERM snapshot that ``--resume`` continues bit for bit as an
-uninterrupted run; the three mapper branches that are not ported exit
-naming their class; the ``--latent_path`` loader.
+uninterrupted run; the three other mapper branches (the W+ mappers and the
+S-space one without clusters) for 2 steps each, resumed bit for bit from
+their step-1 checkpoint; the ``--latent_path`` loader.
 """
 
 import os
@@ -116,11 +117,42 @@ def test_torch_run_attention_cli_sigterm_resume_bitwise(assets, tmp_path, monkey
     (("--use_cluster",), "FullSpaceMapperFEATClusterLin"),
     (("--work_in_stylespace",), "FullSpaceMapperFEATLinStyle"),
 ])
-def test_torch_run_attention_cli_unported_mappers(tmp_path, flags, name):
-    with pytest.raises(SystemExit, match=f"{name} is not ported"):
-        run_attention.main(["--stylegan_size", "32", "--device", "cpu",
-                            "--results_dir", str(tmp_path), *flags])
-    assert not os.listdir(tmp_path)
+def test_torch_run_attention_cli_unported_mappers(assets, tmp_path, flags, name):
+    """The branches the first slices left out: each trains 2 steps with its
+    own mapper (reference keys in the checkpoint), and a run resumed from
+    the step-1 checkpoint ends where the 2-step run ends, bit for bit."""
+    base = ["--stylegan_size", "32", "--device", "cpu", "--cluster_layer", "7",
+            "--clip_ckpt", assets["clip"], "--vgg_ckpt", assets["vgg"],
+            "--ckpt", "/nonexistent", "--step", "2", "--batch_size", "2",
+            "--own_description_dir", assets["phrases"], *flags]
+    if "--use_cluster" in flags:
+        base += ["--cluster_path", assets["pkl"]]
+    full = run_attention.main([*base, "--save_intermediate_image_every", "1",
+                               "--results_dir", str(tmp_path / "full")])
+    assert {"00001_mapper.pt", "final_mapper.pt", "final_result.jpg",
+            "attention00002.jpg"} <= set(os.listdir(full))
+    resumed = run_attention.main([*base, "--save_intermediate_image_every", "0",
+                                  "--resume", os.path.join(full, "00001_mapper.pt"),
+                                  "--results_dir", str(tmp_path / "resumed")])
+    a = torch.load(os.path.join(full, "final_mapper.pt"), weights_only=True)
+    b = torch.load(os.path.join(resumed, "final_mapper.pt"), weights_only=True)
+    assert a["step"] == b["step"] == 2 and a["adam"]["count"] == b["adam"]["count"] == 2
+    assert a["mapper"].keys() == b["mapper"].keys()
+    for k in a["mapper"]:
+        assert torch.equal(a["mapper"][k], b["mapper"][k]), k
+    keys = set(a["mapper"])
+    wplus = not flags or flags == ("--use_cluster",)
+    # W+: three EqualLinears per row and the trunk; S-space: two per style
+    assert ("mapper_0.3.weight" in keys) == wplus
+    assert "mapper_0.2.weight" in keys and "attention_last.weight" in keys
+    assert ("attention_first.weight" in keys) == wplus
+    assert ("initial_state" in keys) == (name == "FullSpaceMapperFEATClusterLin")
+    if "initial_state" in keys:
+        assert float(a["mapper"]["initial_state"].abs().max()) > 0
+    log = open(os.path.join(full, "run.log")).read()
+    losses = [float(line.split("loss=")[1].split(";")[0])
+              for line in log.splitlines() if line.startswith("step ")]
+    assert len(losses) == 2 and all(np.isfinite(losses))
 
 
 def test_torch_run_attention_loaders(assets, tmp_path):

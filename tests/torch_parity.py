@@ -95,31 +95,66 @@ def position_centres(rng, k: int = 10, width: int = 512) -> np.ndarray:
     return c
 
 
-def attention_models() -> dict:
-    """The JAX generator, mapper, small CLIP and VGG16 with their numpy
-    variables (perturbed where a fresh init is dormant), and a mean latent."""
-    from where2edit_tpu.editing.attention_mappers import (  # noqa: PLC0415
-        FullSpaceMapperFEATClusterLinStyle,
-    )
+# the mappers the trainer's parity tests run: (works in S-space, has
+# clusters, JAX variables → the port's state dict)
+ATT_MAPPERS = {
+    "FullSpaceMapperFEATClusterLinStyle": (True, True, convert.mapper_state_dict),
+    "FullSpaceMapperFEATClusterLin": (False, True, convert.feat_mapper_state_dict),
+    "FullSpaceMapperFEATLin": (False, False, convert.feat_mapper_state_dict),
+}
+
+
+def _attention_mapper_kw(name: str) -> dict:
+    kw = dict(layers=8, attention_layer=ATT_LAYER, generator_size=ATT_SIZE)
+    if ATT_MAPPERS[name][1]:
+        kw["cluster_layer"] = ATT_CLUSTER
+    return kw
+
+
+def attention_models(mapper: str = "FullSpaceMapperFEATClusterLinStyle") -> dict:
+    """The JAX generator, ``mapper`` (a name in ``ATT_MAPPERS``), small CLIP
+    and VGG16 with their numpy variables (perturbed where a fresh init is
+    dormant: the S-space mapper's noise and activation biases, the W+
+    mappers' biases, with their trunk's head at 2.5 where 5 would saturate
+    the map; near 0.8 the coverage penalty, a sum of (mean - 0.8) over the
+    regions, would be a difference of near-equal numbers, which no relative
+    bar can hold), and a mean latent."""
+    from where2edit_tpu.editing import attention_mappers as jam  # noqa: PLC0415
     from where2edit_tpu.models.clip_model import CLIP  # noqa: PLC0415
     from where2edit_tpu.models.vgg import Vgg16  # noqa: PLC0415
 
     torch.set_num_threads(2)
     rng = np.random.default_rng(0)
+    stylespace, clusters, _ = ATT_MAPPERS[mapper]
     gen, gvars = jax_generator(ATT_SIZE)
-    jmap = FullSpaceMapperFEATClusterLinStyle(
-        layers=8, attention_layer=ATT_LAYER, cluster_layer=ATT_CLUSTER,
-        generator_size=ATT_SIZE)
+    jmap = getattr(jam, mapper)(**_attention_mapper_kw(mapper))
     out = jax.jit(lambda v: gen.apply(v, [jnp.zeros((1, 512))], randomize_noise=False,
                                       return_features=True))(jax.tree.map(jnp.asarray, gvars))
     feats = list(out.feature_map) + [jnp.asarray(gvars["params"]["input"]["input"])]
-    mvars = jax.jit(lambda: jmap.init({"params": jax.random.PRNGKey(1)},
-                                      jnp.zeros((1, 512)), out.style_vector, feats,
-                                      16, deterministic_noise=True))()
+    if stylespace:
+        mvars = jax.jit(lambda: jmap.init({"params": jax.random.PRNGKey(1)},
+                                          jnp.zeros((1, 512)), out.style_vector, feats,
+                                          16, deterministic_noise=True))()
+    else:
+        mvars = jax.jit(lambda: jmap.init({"params": jax.random.PRNGKey(1)},
+                                          jnp.zeros((1, 512)), jnp.zeros((1, 8, 512)),
+                                          feats, 16))()
     mvars = {k: dict(v) for k, v in np_tree(mvars).items()}
-    mvars["params"] = perturb(mvars["params"], rng)
-    mvars["params"]["initial_bias"] = np.full((1,), 1.5, np.float32)
-    mvars["clusters"] = {"initial_state": position_centres(rng)}
+    if stylespace:
+        mvars["params"] = perturb(mvars["params"], rng)
+        mvars["params"]["initial_bias"] = np.full((1,), 1.5, np.float32)
+    else:
+        def biases(node, name=""):
+            if isinstance(node, dict):
+                return {k: biases(v, k) for k, v in node.items()}
+            return ((rng.standard_normal(node.shape) * 0.1).astype(np.float32)
+                    if name == "bias" else node)
+        mvars["params"] = biases(mvars["params"])
+        att = mvars["params"]["att"]
+        att["attention_last"] = dict(att["attention_last"],
+                                     bias=np.full((1,), 2.5, np.float32))
+    if clusters:
+        mvars["clusters"] = {"initial_state": position_centres(rng)}
     jclip = CLIP(**TINY_CLIP)
     clip_vars = np_tree(jax.jit(lambda: jclip.init(
         jax.random.PRNGKey(2), jnp.zeros((1, 224, 224, 3)),
@@ -129,15 +164,14 @@ def attention_models() -> dict:
                                                  jnp.zeros((1, 32, 32, 3))))())
     mean_w = rng.standard_normal((1, 512)).astype(np.float32) * 0.1
     return dict(gen=gen, gvars=gvars, jmap=jmap, mvars=mvars, jclip=jclip,
-                clip_vars=clip_vars, jvgg=jvgg, vgg_vars=vgg_vars, mean_w=mean_w)
+                clip_vars=clip_vars, jvgg=jvgg, vgg_vars=vgg_vars, mean_w=mean_w,
+                mapper=mapper, stylespace=stylespace)
 
 
 def attention_trainer(m: dict, freeze: float = 1.15, perceptual=None, **kw):
     """The port's ``AttentionTrainer`` on ``attention_models()``'s weights
     (``perceptual`` replaces the VGG16 loss when given)."""
-    from where2edit_tpu_torch.editing.attention_mappers import (  # noqa: PLC0415
-        FullSpaceMapperFEATClusterLinStyle,
-    )
+    from where2edit_tpu_torch.editing import attention_mappers as tam  # noqa: PLC0415
     from where2edit_tpu_torch.losses.clip_loss import CLIPLoss  # noqa: PLC0415
     from where2edit_tpu_torch.losses.perceptual import PerceptualLoss  # noqa: PLC0415
     from where2edit_tpu_torch.models.clip_model import CLIP, load_clip_state  # noqa: PLC0415
@@ -147,17 +181,15 @@ def attention_trainer(m: dict, freeze: float = 1.15, perceptual=None, **kw):
         AttentionTrainer,
     )
 
-    tmap = FullSpaceMapperFEATClusterLinStyle(
-        layers=8, attention_layer=ATT_LAYER, cluster_layer=ATT_CLUSTER,
-        generator_size=ATT_SIZE)
-    convert.load_converted(tmap, convert.mapper_state_dict(m["mvars"]))
+    tmap = getattr(tam, m["mapper"])(**_attention_mapper_kw(m["mapper"]))
+    convert.load_converted(tmap, ATT_MAPPERS[m["mapper"]][2](m["mvars"]))
     if perceptual is None:
         vgg = load_vgg16_state(Vgg16(), convert.vgg16_state_dict(m["vgg_vars"]))
         perceptual = PerceptualLoss(vgg.eval(), ATT_SIZE)
     clip = load_clip_state(CLIP(**TINY_CLIP), convert.clip_state_dict(m["clip_vars"]))
     cfg = AttentionTrainConfig(stylegan_size=ATT_SIZE, attention_layer=ATT_LAYER,
                                cluster_layer=ATT_CLUSTER, batch_size=ATT_BATCH,
-                               step=ATT_STEPS, work_in_stylespace=True,
+                               step=ATT_STEPS, work_in_stylespace=m["stylespace"],
                                freeze_attention_until=freeze)
     return AttentionTrainer(cfg, generator=torch_generator(m["gvars"], ATT_SIZE),
                             mapper=tmap, clip_loss=CLIPLoss(clip.eval(), ATT_SIZE),
@@ -193,7 +225,7 @@ def jax_attention_step(m: dict, key, step_idx: int, bank, latent_bank=None,
     perceptual = PerceptualLoss(m["jvgg"], m["vgg_vars"], ATT_SIZE)
     cfg = jat.AttentionTrainConfig(stylegan_size=ATT_SIZE, attention_layer=ATT_LAYER,
                                    cluster_layer=ATT_CLUSTER, batch_size=ATT_BATCH,
-                                   step=ATT_STEPS, work_in_stylespace=True,
+                                   step=ATT_STEPS, work_in_stylespace=m["stylespace"],
                                    freeze_attention_until=0.0)
     params = jax.tree.map(jnp.asarray, m["mvars"]["params"])
     tr = jat.AttentionTrainer(
@@ -202,8 +234,8 @@ def jax_attention_step(m: dict, key, step_idx: int, bank, latent_bank=None,
         encode_image=lambda lv, img: clip_loss.apply_encode_image(lv["clip"], img),
         perceptual=lambda lv, a, b: perceptual.apply(lv["vgg"], a, b),
         mean_latent=jnp.asarray(m["mean_w"]),
-        mapper_extra_variables={"clusters": jax.tree.map(jnp.asarray,
-                                                         m["mvars"]["clusters"])},
+        mapper_extra_variables={k: jax.tree.map(jnp.asarray, v)
+                                for k, v in m["mvars"].items() if k != "params"},
         loss_variables={"clip": m["clip_vars"], "vgg": m["vgg_vars"]},
         latent_bank=latent_bank, text_bank=text_bank)
     keep = optax.GradientTransformation(
@@ -216,7 +248,7 @@ def jax_attention_step(m: dict, key, step_idx: int, bank, latent_bank=None,
         tr.opt.init(params), jnp.asarray(float(step_idx)), key, jnp.asarray(bank),
         tr.latent_bank, tr.text_bank)
     return ({k: float(v) for k, v in aux.items()},
-            convert.mapper_state_dict({"params": np_tree(opt_state[0]["g"])}))
+            ATT_MAPPERS[m["mapper"]][2]({"params": np_tree(opt_state[0]["g"])}))
 
 
 def compare_attention_step(aux_t: dict, aux_j: dict, trainer, grads_j: dict) -> None:

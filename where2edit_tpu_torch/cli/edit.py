@@ -3,12 +3,14 @@ where2edit_tpu/cli/edit.py).
 
 Loads one or more faces (a seeded sample; photos inverted by e4e; a W+
 bank; a gallery entry), applies each ``--text`` prompt to every face
-through the same ``EditSession`` the demos use, and saves
+through the same ``EditSession`` the demos use (a trained mapper from
+``--mapper``, the CLIP text tower from ``--clip_ckpt``), and saves
 original/edited/attention PNGs (skipped when Pillow is missing). Every
 prompt after the first reuses the session's cached styles and taps.
 
     python -m where2edit_tpu_torch.cli.edit --seed 7 \\
-        --text "a person with grey hair" --region hair --output_dir edits/
+        --text "a person with grey hair" --region hair --output_dir edits/ \\
+        --mapper final_mapper.pt --clip_ckpt ViT-B-32.pt
     python -m where2edit_tpu_torch.cli.edit --image face.png \\
         --e4e_ckpt e4e_ffhq_encode.pt --text "grey hair" --device cpu
 """

@@ -1,9 +1,14 @@
 """Phase-2 region-attention training CLI (counterpart of
 where2edit_tpu/cli/run_attention.py), one card, fp32.
 
-Trains the production S-space mapper (``--work_in_stylespace
---use_cluster --cluster_path`` from ``run_clustering``) against CLIP, VGG
-and InfoNCE with the generator frozen: the corpus, the region-prompt bank,
+Trains a region-attention mapper against CLIP, VGG and InfoNCE with the
+generator frozen. The flags pick it as the JAX CLI does:
+``--work_in_stylespace --use_cluster`` the production S-space mapper
+(``FullSpaceMapperFEATClusterLinStyle``, its centres from ``run_clustering``'s
+``--cluster_path``), ``--use_cluster`` alone its W+ twin
+(``FullSpaceMapperFEATClusterLin``), ``--work_in_stylespace`` alone
+``FullSpaceMapperFEATLinStyle`` and neither ``FullSpaceMapperFEATLin``.
+With it: the corpus, the region-prompt bank,
 periodic checkpoints with image and attention grids and ``video.txt``, the
 own-phrase renders, a SIGTERM snapshot and a bit-exact ``--resume``.
 
@@ -37,7 +42,10 @@ from where2edit_tpu_torch.cli.common import (
     snapshot_sources,
 )
 from where2edit_tpu_torch.editing.attention_mappers import (
+    FullSpaceMapperFEATClusterLin,
     FullSpaceMapperFEATClusterLinStyle,
+    FullSpaceMapperFEATLin,
+    FullSpaceMapperFEATLinStyle,
 )
 from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
 from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
@@ -111,12 +119,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return p
 
 
-# the three other mapper branches of the JAX CLI, by their flags
-_UNPORTED = {(False, False): "FullSpaceMapperFEATLin",
-             (False, True): "FullSpaceMapperFEATClusterLin",
-             (True, False): "FullSpaceMapperFEATLinStyle"}
-
-
 def load_clip(clip_ckpt: str | None, device) -> CLIP:
     """``--clip_ckpt``'s CLIP (a state dict, or a TorchScript archive's),
     else ViT-B/32 with seeded random weights; frozen, on ``device``."""
@@ -160,16 +162,35 @@ def load_latent_bank(path: str, gen) -> torch.Tensor:
     return torch.from_numpy(lat).to(gen.device)
 
 
+def build_mapper(args, n_latent: int):
+    """The mapper of the flags' branch, with seeded random weights (the
+    cluster mappers' centres from ``--cluster_path`` when given)."""
+    kw = dict(layers=n_latent, attention_layer=args.attention_layer,
+              channel_multiplier=args.channel_multiplier,
+              generator_size=args.stylegan_size,
+              rng=torch.Generator().manual_seed(args.seed))
+    if not args.use_cluster:
+        cls = (FullSpaceMapperFEATLinStyle if args.work_in_stylespace
+               else FullSpaceMapperFEATLin)
+        return cls(**kw)
+    centers = (load_cluster_centers(args.cluster_path) if args.cluster_path
+               else None)
+    cls = (FullSpaceMapperFEATClusterLinStyle if args.work_in_stylespace
+           else FullSpaceMapperFEATClusterLin)
+    mapper = cls(cluster_layer=args.cluster_layer,
+                 clusters=args.cluster_num if centers is None else centers.shape[0],
+                 cluster_dim=576 if centers is None else centers.shape[1], **kw)
+    if centers is not None:
+        mapper.initial_state.copy_(torch.from_numpy(centers))
+    return mapper
+
+
 def main(argv=None, span=None):
     """Returns the run's output directory. ``span(stage, trainer)``, when
     given, is a context manager around each stage of every training step
     (``AttentionTrainer``'s): ``chip_smoke.py`` fences, times and counts
     with it."""
     args = build_argparser().parse_args(argv)
-    unported = _UNPORTED.get((args.work_in_stylespace, args.use_cluster))
-    if unported:
-        raise SystemExit(f"{unported} is not ported yet; train the production "
-                         "mapper with --work_in_stylespace --use_cluster")
     dev = resolve_device(args.device)
     rng = set_random_seed(args.seed, dev)
     host_rng = random.Random(args.seed)
@@ -221,18 +242,7 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         print(f"[text_condition] bank of {text_bank.shape[0]} phrase "
               f"encodings from {len(corpus.phrases)} corpus phrases")
 
-    centers = (load_cluster_centers(args.cluster_path) if args.cluster_path
-               else None)
-    mapper = FullSpaceMapperFEATClusterLinStyle(
-        layers=gen.n_latent, attention_layer=args.attention_layer,
-        cluster_layer=args.cluster_layer,
-        channel_multiplier=args.channel_multiplier,
-        clusters=args.cluster_num if centers is None else centers.shape[0],
-        cluster_dim=576 if centers is None else centers.shape[1],
-        generator_size=args.stylegan_size,
-        rng=torch.Generator().manual_seed(args.seed)).to(dev)
-    if centers is not None:
-        mapper.initial_state.copy_(torch.from_numpy(centers))
+    mapper = build_mapper(args, gen.n_latent).to(dev)
 
     cfg = AttentionTrainConfig(
         stylegan_size=args.stylegan_size, attention_layer=args.attention_layer,
@@ -256,8 +266,8 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
 
     @torch.no_grad()
     def sample_eval(batch):
-        """(image, styles, taps) of fresh truncated samples (random rows of
-        the latent bank with ``--latent_path``)."""
+        """(image, the mapper's latent, taps) of fresh truncated samples
+        (random rows of the latent bank with ``--latent_path``)."""
         if latent_bank is not None:
             sel = torch.randint(0, latent_bank.shape[0], (batch,), generator=rng,
                                 device=dev)
@@ -266,22 +276,19 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         return trainer._capture(trainer._wplus(sel))
 
     @torch.no_grad()
-    def render_sweep(styles, feats, batch):
-        """One (edited image, attention map) batch per own phrase."""
-        blend = feats[args.attention_layer - 1].shape[1]
+    def render_sweep(latents, feats, batch):
+        """One (edited image, attention map) batch per own phrase, the
+        mapper in inference mode."""
         imgs, amaps = [], []
         for p in range(own_text.shape[0]):
             text = own_text[p:p + 1].expand(batch, -1)
-            mo = mapper(text, styles, feats, blend, deterministic_noise=True)
-            imgs.append(gen(mo.latents, input_is_stylespace=True,
-                            randomize_noise=False,
-                            attention_layer=args.attention_layer,
-                            attention_map=mo.attention_map,
-                            feature_map=feats).image)
+            new_latents, mo = trainer.mapper_forward(text, latents, feats, None,
+                                                     train=False)
+            imgs.append(trainer.synthesize(new_latents, mo.attention_map, feats))
             amaps.append(mo.attention_map)
         return torch.cat(imgs), torch.cat(amaps)
 
-    _, eval_styles, eval_feats = sample_eval(1)
+    _, eval_latents, eval_feats = sample_eval(1)
     video_f = open(os.path.join(output_dir, "video.txt"), "w")  # noqa: SIM115
 
     def checkpoint(name: str, step: int) -> str:
@@ -295,7 +302,7 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         if every > 0 and (i + 1) % every == 0:
             checkpoint(f"{i + 1:05d}_mapper.pt", i + 1)
             if own_text is not None:
-                imgs, amaps = render_sweep(eval_styles, eval_feats, 1)
+                imgs, amaps = render_sweep(eval_latents, eval_feats, 1)
                 nrow = 1
             else:
                 imgs, amaps, nrow = img, amap, max(args.batch_size, 1)
@@ -332,8 +339,8 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
     if own_text is not None:
         # originals row, then one row of edits per own phrase
         n = max(1, min(4, 2 * args.batch_size))
-        img0, styles, feats = sample_eval(n)
-        imgs, amaps = render_sweep(styles, feats, n)
+        img0, latents, feats = sample_eval(n)
+        imgs, amaps = render_sweep(latents, feats, n)
         save_image_grid(torch.cat([img0, imgs]),
                         os.path.join(output_dir, "final_result.jpg"),
                         nrow=n, scale_each=True)

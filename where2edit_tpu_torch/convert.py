@@ -156,6 +156,41 @@ def mapper_state_dict(variables: dict) -> dict:
     return sd
 
 
+def feat_mapper_state_dict(variables: dict) -> dict:
+    """``{"params"[, "clusters"]}`` of ``FullSpaceMapperFEATLin``,
+    ``FullSpaceMapperFEATClusterLin`` or ``FullSpaceMapperFEATLinStyle`` →
+    the port's state dict: the W+ trunk's ``att/attention_*`` become the
+    flat ``attention_*`` EqualConv2d entries, ``mapper_{c}_fc_{i}`` becomes
+    ``mapper_{c}.{i + 1}`` (index 0 of the reference's Sequential is the
+    PixelNorm) and the ``clusters`` collection ``initial_state``."""
+    params = dict(variables["params"])
+    params.update(params.pop("att", {}))
+    sd = {}
+    for name, p in params.items():
+        if name.startswith("attention_"):
+            sd[f"{name}.weight"] = _conv_w(p["weight"])
+            sd[f"{name}.bias"] = _t(p["bias"])
+        else:
+            c, i = name[len("mapper_"):].split("_fc_")
+            sd.update(_equal_linear(p, f"mapper_{c}.{int(i) + 1}"))
+    if "clusters" in variables:
+        sd["initial_state"] = _t(variables["clusters"]["initial_state"])
+    return sd
+
+
+def reference_mapper_state_dict(state_dict: dict) -> dict:
+    """A reference or DDP-trained mapper checkpoint's state dict, read as
+    the JAX loader reads it: the ``module.`` prefix stripped, the dead
+    ``mapper_textca_{c}`` (CA_NET) entries dropped. ``initial_state`` may
+    be missing; the caller decides what a mapper without centres does."""
+    sd = {}
+    for k, v in state_dict.items():
+        k = k[len("module."):] if k.startswith("module.") else k
+        if not k.startswith("mapper_textca_"):
+            sd[k] = v
+    return sd
+
+
 def _clip_blocks(blk: dict, prefix: str) -> dict:
     """A scanned CLIP Transformer's blocks (stacked along axis 0) → the
     OpenAI ``{prefix}.resblocks.{i}.*`` keys."""

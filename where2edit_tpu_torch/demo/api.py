@@ -5,7 +5,10 @@ styles and the mapper-ready feature taps, then edits it with any prompt:
 CLIP text encoding, the mapper (edited styles + cluster-pooled attention
 map), threshold + blur of the map, and a second synthesis that blends
 ``m·edited + (1-m)·original`` at ``attention_layer``. The session works in
-S-space, the production path.
+S-space (the production path, the demo's) or, with
+``work_in_stylespace=False``, in W+: it keeps the W+ latent, the mapper
+(a W+ one, ``FullSpaceMapperFEATClusterLin``) returns a delta that is added
+at strength one, and the synthesis takes the new W+.
 """
 
 from __future__ import annotations
@@ -37,36 +40,52 @@ def predict_edit(*, mapper, text_features, attention_text_features, latent,
                  strength_alpha: float = 0.1,
                  attention_threshold: float = 0.75,
                  deterministic_noise: bool = True,
-                 rng: torch.Generator | None = None):
-    """Mapper, then threshold + blur of its pooled map. Returns
-    (new_styles, attention_map (B, blend, blend, 1))."""
-    mo = mapper(text_features, latent, mapper_feature_map, blend_size,
-                attention_text=attention_text_features,
-                strength_alpha=strength_alpha, pooled_map=True,
-                finalize=False, deterministic_noise=deterministic_noise,
-                rng=rng)
+                 rng: torch.Generator | None = None,
+                 work_in_stylespace: bool = True):
+    """Mapper (inference: ``train=False``), then threshold + blur of its map.
+    S-space: the edited styles and the cluster-pooled map (``strength_alpha``
+    scales the residuals). W+: ``latent + delta`` (strength one) and the
+    W+ mapper's own map. Returns (new_latents, attention_map (B, h, h, 1))."""
+    if work_in_stylespace:
+        mo = mapper(text_features, latent, mapper_feature_map, blend_size,
+                    attention_text=attention_text_features, train=False,
+                    strength_alpha=strength_alpha, pooled_map=True,
+                    finalize=False, deterministic_noise=deterministic_noise,
+                    rng=rng)
+        new_latents = mo.latents
+    else:
+        mo = mapper(text_features, latent, mapper_feature_map, blend_size,
+                    attention_text=attention_text_features, train=False)
+        new_latents = latent + mo.latents
     amap = gaussian_blur(demo_threshold(mo.attention_map, attention_threshold), 5)
-    return mo.latents, amap
+    return new_latents, amap
 
 
 def synthesize_edit(*, generator, new_latents, attention_map, feature_map,
-                    attention_layer: int):
-    """The blended S-space synthesis; stores no taps."""
-    return generator(new_latents, input_is_stylespace=True,
-                     randomize_noise=False, attention_layer=attention_layer,
-                     attention_map=attention_map,
-                     feature_map=feature_map).image
+                    attention_layer: int, work_in_stylespace: bool = True):
+    """The blended synthesis from edited styles (or, in W+, from the new
+    W+); stores no taps."""
+    if work_in_stylespace:
+        styles, kw = new_latents, {"input_is_stylespace": True}
+    else:
+        styles, kw = [new_latents], {"input_is_latent": True}
+    return generator(styles, randomize_noise=False,
+                     attention_layer=attention_layer,
+                     attention_map=attention_map, feature_map=feature_map,
+                     **kw).image
 
 
 def one_text_edit(*, generator, mapper, text_features, attention_text_features,
                   latent, feature_map, attention_layer: int,
+                  work_in_stylespace: bool = True,
                   strength_alpha: float = 0.1,
                   attention_threshold: float = 0.75,
                   deterministic_noise: bool = True, mapper_feature_map=None,
                   rng: torch.Generator | None = None):
-    """Edit one batch of S-space styles ``latent`` (list of (B, C)).
-    ``mapper_feature_map`` defaults to ``feature_map`` (the blend source).
-    Returns (image, new_styles, attention_map)."""
+    """Edit one batch: ``latent`` is the S-space styles (list of (B, C)) or,
+    without ``work_in_stylespace``, a W+ (B, L, 512). ``mapper_feature_map``
+    defaults to ``feature_map`` (the blend source). Returns (image,
+    new_latents, attention_map)."""
     blend_size = feature_map[attention_layer - 1].shape[1]
     new_latents, amap = predict_edit(
         mapper=mapper, text_features=text_features,
@@ -75,15 +94,18 @@ def one_text_edit(*, generator, mapper, text_features, attention_text_features,
                             else mapper_feature_map),
         blend_size=blend_size, strength_alpha=strength_alpha,
         attention_threshold=attention_threshold,
-        deterministic_noise=deterministic_noise, rng=rng)
+        deterministic_noise=deterministic_noise, rng=rng,
+        work_in_stylespace=work_in_stylespace)
     img = synthesize_edit(generator=generator, new_latents=new_latents,
                           attention_map=amap, feature_map=feature_map,
-                          attention_layer=attention_layer)
+                          attention_layer=attention_layer,
+                          work_in_stylespace=work_in_stylespace)
     return img, new_latents, amap
 
 
 class EditSession:
-    """Holds the models and one loaded face (its styles and taps).
+    """Holds the models and one loaded face (its styles, or its W+ without
+    ``work_in_stylespace``, and its taps).
 
     ``edit`` = ``encode`` (CLIP text) → ``predict`` (mapper + map) →
     ``render`` (blended synthesis); the three stages are public so a caller
@@ -91,11 +113,12 @@ class EditSession:
     """
 
     def __init__(self, *, generator, mapper, clip_encode_text,
-                 attention_layer: int = 13):
+                 attention_layer: int = 13, work_in_stylespace: bool = True):
         self.generator = generator
         self.mapper = mapper
         self.clip_encode_text = clip_encode_text
         self.attention_layer = attention_layer
+        self.work_in_stylespace = work_in_stylespace
         self.device = generator.device
         self.latent = None
         self.feature_map = None
@@ -131,18 +154,20 @@ class EditSession:
 
     @torch.no_grad()
     def load_latent(self, wplus: torch.Tensor) -> torch.Tensor:
-        """Capture a W+ (B, n_latent, 512): S-space styles and the mapper-
-        ready taps (subsampled at the source), with the const input
-        appended. Returns the image."""
+        """Capture a W+ (B, n_latent, 512): its S-space styles (or the W+
+        itself) and the mapper-ready taps (subsampled at the source), with
+        the const input appended. Returns the image."""
         wplus = torch.as_tensor(wplus, device=self.device, dtype=torch.float32)
+        # a mapper without clusters reads no cluster tap
+        cluster_layer = getattr(self.mapper, "cluster_layer", self.attention_layer)
         blend, keep = tap_controls(self.generator.size, self.attention_layer,
-                                   self.mapper.cluster_layer)
+                                   cluster_layer)
         out = self.generator([wplus], input_is_latent=True,
                              randomize_noise=False, return_features=True,
                              tap_subsample=blend, tap_indices=keep)
         const = self.generator.input(wplus.shape[0])
         self.feature_map = list(out.feature_map) + [const]
-        self.latent = out.style_vector
+        self.latent = out.style_vector if self.work_in_stylespace else wplus
         self.image = out.image
         return out.image
 
@@ -167,8 +192,10 @@ class EditSession:
         if self.latent is None:
             raise RuntimeError("load a face first (load_synthetic/load_latent)")
         lat, feats = self.latent, self.feature_map
-        if lat[0].shape[0] == 1 and n > 1:
-            lat = [s.expand(n, *s.shape[1:]) for s in lat]
+        faces = (lat[0] if self.work_in_stylespace else lat).shape[0]
+        if faces == 1 and n > 1:
+            lat = ([s.expand(n, *s.shape[1:]) for s in lat]
+                   if self.work_in_stylespace else lat.expand(n, *lat.shape[1:]))
             feats = [None if f is None else f.expand(n, *f.shape[1:])
                      for f in feats]
         return lat, feats
@@ -183,7 +210,8 @@ class EditSession:
             mapper_feature_map=feats,
             blend_size=feats[self.attention_layer - 1].shape[1],
             strength_alpha=strength_alpha,
-            attention_threshold=attention_threshold)
+            attention_threshold=attention_threshold,
+            work_in_stylespace=self.work_in_stylespace)
 
     @torch.no_grad()
     def render(self, new_latents, amap):
@@ -191,7 +219,8 @@ class EditSession:
         return synthesize_edit(generator=self.generator,
                                new_latents=new_latents, attention_map=amap,
                                feature_map=feats,
-                               attention_layer=self.attention_layer)
+                               attention_layer=self.attention_layer,
+                               work_in_stylespace=self.work_in_stylespace)
 
     def edit(self, prompt_tokens, attention_tokens=None,
              strength_alpha: float = 0.1, attention_threshold: float = 0.75):

@@ -2,27 +2,35 @@
 where2edit_tpu/demo/app.py ``load_session`` / ``load_psp`` /
 ``load_gallery`` / ``build_argparser``).
 
-The generator loads from ``--ckpt``'s ``g_ema`` when that file exists; the
-mapper and the CLIP text tower are built from seeded random weights (their
-checkpoints do not load yet), as is the generator without a checkpoint.
+``load_session`` builds the S-space session the demo serves: the generator
+from ``--ckpt``'s ``g_ema`` when that file exists, the mapper from
+``--mapper`` (a reference mapper ``.pt``, bare or DDP-prefixed, or the
+``final_mapper.pt`` that ``cli/run_attention.py`` writes) and the CLIP text
+tower from ``--clip_ckpt`` (an OpenAI state dict or TorchScript archive).
+Whatever is not given keeps seeded random weights, and stderr says so.
+The W+ session (``EditSession(work_in_stylespace=False)``) is reached
+through the API, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import sys
 
 import torch
 
 from where2edit_tpu_torch import resolve_device
 from where2edit_tpu_torch.cli.common import load_torch_state
+from where2edit_tpu_torch.cli.run_attention import load_clip
+from where2edit_tpu_torch.convert import reference_mapper_state_dict
 from where2edit_tpu_torch.demo.api import EditSession
 from where2edit_tpu_torch.demo.gallery import CelebGallery
 from where2edit_tpu_torch.editing.attention_mappers import (
     FullSpaceMapperFEATClusterLinStyle,
 )
 from where2edit_tpu_torch.models.clip_model import TextTransformer
-from where2edit_tpu_torch.models.psp import PSp
+from where2edit_tpu_torch.models.psp import PSp, get_keys
 from where2edit_tpu_torch.models.stylegan2 import Generator
 
 # the demo's fixed attention-region prompts
@@ -64,16 +72,73 @@ def build_session(size: int = 1024, attention_layer: int = 13,
                        attention_layer=attention_layer)
 
 
+def read_mapper_checkpoint(path: str) -> dict:
+    """The mapper state dict of ``path``: the ``"mapper"`` entry of a
+    checkpoint ``cli/run_attention.py`` wrote, the ``mapper.`` entries of a
+    dict holding a ``state_dict`` (as the JAX package's readers take them),
+    or a bare state dict; read as ``convert.reference_mapper_state_dict`` does
+    (``module.`` stripped, the dead ``mapper_textca_{c}`` entries dropped).
+    Anything else raises, naming the file."""
+    obj = load_torch_state(path)
+    if isinstance(obj, dict) and isinstance(obj.get("mapper"), dict):
+        obj = obj["mapper"]
+    elif isinstance(obj, dict) and "state_dict" in obj:
+        obj = get_keys(obj, "mapper")
+    if (not isinstance(obj, dict) or not obj
+            or not all(isinstance(v, torch.Tensor) for v in obj.values())):
+        raise ValueError(f"--mapper {path}: neither a mapper state dict nor a "
+                         "checkpoint holding one")
+    return reference_mapper_state_dict(obj)
+
+
+def load_mapper_state(mapper, state_dict: dict, path: str = "the checkpoint"):
+    """Load ``state_dict`` into ``mapper`` strictly, sizing its k-means
+    buffer from the file. Without ``initial_state`` the mapper keeps no
+    centres (as the JAX mapper without its clusters collection): it loads,
+    and an edit with it raises."""
+    sd = dict(state_dict)
+    if "initial_state" in sd:
+        mapper.initial_state = torch.zeros_like(sd["initial_state"], dtype=torch.float32)
+        mapper.clusters = sd["initial_state"].shape[0]
+    what = f"--mapper {path} does not fit {type(mapper).__name__}"
+    try:
+        missing, unexpected = mapper.load_state_dict(sd, strict=False)
+    except RuntimeError as e:  # a shape that differs
+        raise ValueError(f"{what}: {e}") from e
+    missing = [k for k in missing if k != "initial_state"]
+    if missing or unexpected:
+        raise ValueError(f"{what}: missing {missing[:5]}, "
+                         f"unexpected {unexpected[:5]}")
+    if "initial_state" not in sd and hasattr(mapper, "initial_state"):
+        mapper.initial_state = None
+    return mapper
+
+
 def load_session(args) -> EditSession:
-    """``build_session`` from the parsed flags, with the generator's weights
-    from ``--ckpt`` (its ``g_ema`` entry, or the whole file as a state dict)
-    when that file exists."""
-    session = build_session(args.stylegan_size, args.attention_layer,
-                            args.cluster_layer, device=args.device)
+    """The demo's S-space session from the parsed flags: ``build_models``'
+    seeded weights, with the generator's from ``--ckpt`` (its ``g_ema``
+    entry, or the whole file as a state dict) when that file exists, the
+    mapper's from ``--mapper`` and the text tower from ``--clip_ckpt``."""
+    dev = resolve_device(args.device)
+    gen, mapper, text = build_models(args.stylegan_size, args.attention_layer,
+                                     args.cluster_layer)
     if args.ckpt and os.path.isfile(args.ckpt):
         ckpt = load_torch_state(args.ckpt)
-        session.generator.load_state_dict(ckpt.get("g_ema", ckpt))
-    return session
+        gen.load_state_dict(ckpt.get("g_ema", ckpt))
+    if args.mapper:
+        load_mapper_state(mapper, read_mapper_checkpoint(args.mapper), args.mapper)
+    else:
+        print("[warn] no --mapper checkpoint: the mapper has seeded random "
+              "weights", file=sys.stderr)
+    if args.clip_ckpt:
+        encode = load_clip(args.clip_ckpt, dev).encode_text
+    else:
+        print("[warn] no --clip_ckpt: the CLIP text tower has seeded random "
+              "weights", file=sys.stderr)
+        encode = text.to(dev).eval()
+    gen, mapper = gen.to(dev).eval(), mapper.to(dev).eval()
+    return EditSession(generator=gen, mapper=mapper, clip_encode_text=encode,
+                       attention_layer=args.attention_layer)
 
 
 def load_psp(args):
@@ -101,6 +166,13 @@ def build_argparser() -> argparse.ArgumentParser:
                    default="pretrained_models/stylegan2-ffhq-config-f.pt",
                    help="generator checkpoint (its g_ema), loaded when the "
                         "file exists; seeded random weights otherwise")
+    p.add_argument("--mapper", type=str, default=None,
+                   help="trained mapper: a reference .pt (state dict, DDP "
+                        "prefixes allowed) or cli/run_attention.py's "
+                        "final_mapper.pt; seeded random weights otherwise")
+    p.add_argument("--clip_ckpt", type=str, default=None,
+                   help="OpenAI CLIP state dict or TorchScript archive for "
+                        "the text tower; seeded random weights otherwise")
     p.add_argument("--e4e_ckpt", type=str, default=None,
                    help="e4e checkpoint for inverting photos")
     p.add_argument("--stylegan_size", type=int, default=1024)

@@ -13,12 +13,17 @@ import torch
 def segment_mean_map(values: torch.Tensor, segment_ids: torch.Tensor,
                      num_segments: int):
     """values (B, H, W) float; segment_ids (B, H, W) int, already offset by
-    sample·clusters. Returns (pooled (B, H, W), means (S,), counts (S,))."""
+    sample·clusters. Returns (pooled (B, H, W), means (S,), counts (S,)).
+
+    The sums are a product with the one-hot id matrix, not an atomic
+    scatter, so the same inputs give the same bits on the card (an edit is
+    reproducible)."""
     flat_v = values.reshape(-1).float()
     flat_i = segment_ids.reshape(-1).long()
-    sums = flat_v.new_zeros(num_segments).index_add_(0, flat_i, flat_v)
-    counts = flat_v.new_zeros(num_segments).index_add_(
-        0, flat_i, torch.ones_like(flat_v))
+    onehot = flat_v.new_zeros(flat_v.shape[0], num_segments).scatter_(
+        1, flat_i[:, None], 1.0)
+    sums = flat_v @ onehot
+    counts = onehot.sum(0)
     means = sums / counts.clamp(min=1.0)
     pooled = means[flat_i].reshape(values.shape).to(values.dtype)
     return pooled, means, counts

@@ -10,8 +10,11 @@ One step, as the JAX step computes it:
    input appended;
 2. the conditioning features: CLIP image features of the first batch, or
    rows of a text bank;
-3. the S-space mapper (zero attention-conv noise), then the edit synthesis
-   blended at ``attention_layer`` through the mapper's map;
+3. the mapper in training mode: an S-space one on the target's styles
+   (zero attention-conv noise), or (``work_in_stylespace=False``) a W+ one
+   on its W+, whose delta is added at strength one; then the edit
+   synthesis from the edited styles or W+, blended at ``attention_layer``
+   through the mapper's map;
 4. InfoNCE between the edited images' CLIP features and the conditioning
    features, the VGG perceptual loss against the target, and the mapper's
    delta / coverage / TV terms under the reference's ramps and crossed
@@ -19,7 +22,8 @@ One step, as the JAX step computes it:
 5. the backward into the mapper alone (generator, CLIP and VGG are frozen:
    ``requires_grad_(False)``, so K1 keeps its prepared weights and no
    kernel computes a generator weight gradient), the freeze mask on the
-   ``attention*`` / ``initial*`` parameters (``freeze_attention_until``
+   ``attention*`` / ``initial*`` parameters (the W+ trunk's flat
+   ``attention_*`` convs among them; ``freeze_attention_until``
    1.15: they never unfreeze in the reference run), and Adam as optax
    computes it, at the lr of ``styleclip_lr_schedule`` at Adam's own count
    (0 at the first update).
@@ -39,6 +43,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from where2edit_tpu_torch.demo.api import synthesize_edit
 from where2edit_tpu_torch.editing.attention_mappers import tap_controls
 from where2edit_tpu_torch.losses.infonce import infonce_consistency
 from where2edit_tpu_torch.train.lr import styleclip_lr_schedule
@@ -141,9 +146,10 @@ def _nullspan(stage, trainer):
 
 
 class AttentionTrainer:
-    """Trains ``mapper`` (the S-space ``FullSpaceMapperFEATClusterLinStyle``)
-    against a frozen ``generator``, ``clip_loss`` (``CLIPLoss``: image
-    features) and ``perceptual`` (``PerceptualLoss``), all on one device.
+    """Trains ``mapper`` (an S-space mapper, or with
+    ``cfg.work_in_stylespace`` False a W+ one) against a frozen
+    ``generator``, ``clip_loss`` (``CLIPLoss``: image features) and
+    ``perceptual`` (``PerceptualLoss``), all on one device.
 
     ``latent_bank`` (N, n_latent, 512): synthesise from random rows of
     pre-inverted W+ codes instead of truncated z samples. ``text_bank``
@@ -158,9 +164,6 @@ class AttentionTrainer:
                  clip_loss, perceptual, mean_latent: torch.Tensor,
                  latent_bank: Optional[torch.Tensor] = None,
                  text_bank: Optional[torch.Tensor] = None, span=None):
-        if not cfg.work_in_stylespace:
-            raise ValueError("the W+ mappers are not ported; train with "
-                             "work_in_stylespace=True")
         self.cfg = cfg
         self.generator = generator.requires_grad_(False)
         clip_loss.model.requires_grad_(False)
@@ -220,12 +223,34 @@ class AttentionTrainer:
         return w[:, None, :].expand(-1, g.n_latent, -1)
 
     def _capture(self, wplus):
-        """(image, S-space styles, the mapper's taps + the const input)."""
+        """(image, the mapper's latent: S-space styles or the W+, the
+        mapper's taps + the const input)."""
         g = self.generator
         out = g([wplus], input_is_latent=True, randomize_noise=False,
                 return_features=True, tap_subsample=self.tap_subsample,
                 tap_indices=self.tap_indices)
-        return out.image, out.style_vector, list(out.feature_map) + [g.input(wplus.shape[0])]
+        latent = out.style_vector if self.cfg.work_in_stylespace else wplus
+        return out.image, latent, list(out.feature_map) + [g.input(wplus.shape[0])]
+
+    def mapper_forward(self, cond, latent, feats, attention_text, train: bool = True):
+        """(the synthesis input, the mapper's output): edited styles, or
+        ``latent + delta`` in W+."""
+        blend_size = feats[self.cfg.attention_layer - 1].shape[1]
+        if self.cfg.work_in_stylespace:
+            mo = self.mapper(cond, latent, feats, blend_size,
+                             attention_text=attention_text, train=train,
+                             deterministic_noise=True)
+            return mo.latents, mo
+        mo = self.mapper(cond, latent, feats, blend_size,
+                         attention_text=attention_text, train=train)
+        return latent + mo.latents, mo
+
+    def synthesize(self, new_latents, amap, feats) -> torch.Tensor:
+        """The edit synthesis, blended at the attention layer."""
+        return synthesize_edit(generator=self.generator, new_latents=new_latents,
+                               attention_map=amap, feature_map=feats,
+                               attention_layer=self.cfg.attention_layer,
+                               work_in_stylespace=self.cfg.work_in_stylespace)
 
     # ----------------------------------------------------------------- step
     def step_with(self, draws: Draws, step_idx: int,
@@ -243,7 +268,7 @@ class AttentionTrainer:
         t = step_idx / cfg.step
         with span("synthesis"), torch.no_grad():
             att_text = attention_bank[draws.att_idx[:1]].expand(b, -1)
-            img2, styles2, feats2 = self._capture(self._wplus(draws.target[:1]))
+            img2, lat2, feats2 = self._capture(self._wplus(draws.target[:1]))
             if self.text_bank is not None:
                 cond = self.text_bank[draws.cond]
             else:
@@ -252,16 +277,13 @@ class AttentionTrainer:
         if self.text_bank is None:
             with span("cond_clip"), torch.no_grad():
                 cond = self.clip_loss.encode_image(img1)
-        styles2 = [s.expand(b, -1) for s in styles2]
+        lat2 = ([s.expand(b, -1) for s in lat2] if cfg.work_in_stylespace
+                else lat2.expand(b, -1, -1))
         feats2 = [None if f is None else f.expand(b, *f.shape[1:]) for f in feats2]
-        blend_size = feats2[cfg.attention_layer - 1].shape[1]
         with span("mapper"):
-            mo = self.mapper(cond, styles2, feats2, blend_size,
-                             attention_text=att_text, deterministic_noise=True)
+            new_latents, mo = self.mapper_forward(cond, lat2, feats2, att_text)
         with span("edit"):
-            img_gen = g(mo.latents, input_is_stylespace=True, randomize_noise=False,
-                        attention_layer=cfg.attention_layer,
-                        attention_map=mo.attention_map, feature_map=feats2).image
+            img_gen = self.synthesize(new_latents, mo.attention_map, feats2)
         with span("losses"):
             consist = infonce_consistency(self.clip_loss.encode_image(img_gen), cond)
             perceptual = self.perceptual(img_gen, img2)
