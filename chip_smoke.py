@@ -140,7 +140,30 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    GB); ``FullSpaceMapperFEATLin`` and ``FullSpaceMapperFEATLinStyle`` for
    2 steps at 256², batch 2; one W+ step at 64² card against CPU at phase
    14's bars.
-15. the ``kernels`` summary line, then the last line
+15a. evaluate_edits — ``cli/evaluate.py edits`` through ``main`` at 1024²
+   (the edit cell's seeded session, ViT-B/32 CLIP with seeded random
+   weights, the seeded InceptionV3 and ArcFace IR-SE50 of
+   ``tests/torch_parity.py`` from files), batch 2, 8 iterations, with the
+   launch counters set to 0 just before: the result's keys and ranges, K1
+   and K3 per stage and per iteration (a capture and an edit: 18 and 37,
+   no K2), ms per stage fenced over iterations 1-5, peak memory; iterations
+   6-7 under ``torch.profiler`` (``evaluate_profile``: device busy per
+   stage, idle share, categories).
+15b. evaluate_iou — ``cli/evaluate.py iou`` at 1024² on 8 synthetic
+   CelebAMask-HQ pairs (phase 7a's faces as JPEGs, seeded 0-13 label
+   PNGs) with phase 7a's e4e checkpoint: per-class and macro IoU in [0, 1],
+   launches per image (a capture and 8 mapper calls: K1 9, K3 9 + 8 x 19),
+   ms per image by stage (invert, capture, mapper).
+15c. evaluate_whole — card against CPU on the same seeded weights:
+   InceptionV3 at batch 2, 299² and ArcFace at batch 2, 112²
+   (``EVAL_REL_TOL``); the edit sweep's ``EditEvaluator`` at 64² from the
+   same W+ and token ids through the CLI's loaders (``EVAL_*_TOL``).
+15d. train_fid — ``cli/train_stylegan.py`` at 1024², batch 8, 2 iterations
+   with ``--fid_every 2 --fid_n 16 --fid_batch 8`` and the seeded
+   InceptionV3: the programs' launches as phase 8, the FID pass's (two
+   EMA syntheses), a finite printed and logged ``eval/fid``, the FID
+   pass's ms.
+16. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -152,9 +175,11 @@ import argparse
 import contextlib
 import glob
 import importlib.util
+import io
 import json
 import math
 import os
+import random
 import shutil
 import statistics
 import subprocess
@@ -172,6 +197,7 @@ import torch
 import torch.nn.functional as F
 
 from where2edit_tpu_torch.cli import edit as edit_cli
+from where2edit_tpu_torch.cli import evaluate
 from where2edit_tpu_torch.cli import run_attention, run_clustering, train_stylegan
 from where2edit_tpu_torch.cli.common import (
     build_generator,
@@ -198,6 +224,7 @@ from where2edit_tpu_torch.editing.attention_mappers import (
     tap_resolution,
 )
 from where2edit_tpu_torch.editing.clustering import _lloyd, kmeans_fit
+from where2edit_tpu_torch.eval.metrics import EditEvaluator
 from where2edit_tpu_torch.kernels import common
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
@@ -207,6 +234,8 @@ from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
 from where2edit_tpu_torch.models.clip_model import CLIP
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.encoders import Encoder4Editing
+from where2edit_tpu_torch.models.inception import InceptionV3
+from where2edit_tpu_torch.models.irse import Backbone
 from where2edit_tpu_torch.models.psp import PSp
 from where2edit_tpu_torch.models.stylegan2 import Generator, channel_table
 from where2edit_tpu_torch.models.vgg import Vgg16
@@ -218,10 +247,14 @@ from where2edit_tpu_torch.train.attention_trainer import (
     Draws,
     is_attention_param,
 )
-from where2edit_tpu_torch.train.corpus import ATTENTION_PROMPTS
+from where2edit_tpu_torch.train.corpus import ATTENTION_PROMPTS, IOU_PROMPTS
 from where2edit_tpu_torch.train.gan_trainer import Draws as GANDraws
 from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
 from where2edit_tpu_torch.utils.logging import read_scalars
+
+# the seeded InceptionV3 and ArcFace state dicts the CPU tests draw too
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+from torch_parity import arcface_state, inception_state  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
@@ -898,10 +931,7 @@ def _union_us(intervals) -> float:
 
 def device_profile(run, spans: tuple, reps: int, count_ops: tuple = ()) -> dict:
     """``reps`` calls of ``run(record_function)`` under ``torch.profiler``,
-    per call: wall and device-busy ms, the idle share, kernel launches,
-    device busy inside each ``record_function`` span named in ``spans``,
-    device time by kernel category and by kernel, and how often each host
-    op or autograd node named in ``count_ops`` ran."""
+    summarised by ``profile_summary``."""
     from torch.profiler import ProfilerActivity, profile, record_function  # noqa: PLC0415
 
     torch.cuda.synchronize()
@@ -911,6 +941,16 @@ def device_profile(run, spans: tuple, reps: int, count_ops: tuple = ()) -> dict:
             run(record_function)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, wall_us, spans, reps, count_ops)
+
+
+def profile_summary(prof, wall_us: float, spans: tuple, reps: int,
+                    count_ops: tuple = ()) -> dict:
+    """Per call of ``reps`` profiled calls that took ``wall_us``: wall and
+    device-busy ms, the idle share, kernel launches, device busy inside
+    each ``record_function`` span named in ``spans``, device time by kernel
+    category and by kernel, and how often each host op or autograd node
+    named in ``count_ops`` ran."""
     cuda = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     op_counts = dict.fromkeys(count_ops, 0)
     for e in prof.events():
@@ -1270,31 +1310,38 @@ def encoder_flops(encoder, x) -> int:
     return total
 
 
-def phase_invert(session, card: str) -> tuple:
-    """Returns ({kernel: launches} of the main path, the card's PSp, its
-    checkpoint, the batch-1 input)."""
+def photo_inputs(session, work: str) -> tuple:
+    """(the e4e checkpoint of ``e4e_checkpoint(session.generator, SIZE, 2)``,
+    its path under ``work``, the seconds to make and save it, 8 of the
+    session's seeded 1024² faces face-pooled to the encoder's 256²: they
+    stand in for photos)."""
     gen = session.generator
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ckpt = e4e_checkpoint(gen, SIZE, seed=2)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "e4e.pt")
-        torch.save(ckpt, path)
-        save_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        psp = load_psp(app_argparser().parse_args([
-            "--e4e_ckpt", path, "--stylegan_size", str(SIZE), "--device", "cuda"]))
-        torch.cuda.synchronize()
-        load_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in psp.encoder.parameters())
-    # 8 seeded faces at 1024², face-pooled to the encoder's 256², stand in for photos
+    path = os.path.join(work, "e4e.pt")
+    torch.save(ckpt, path)
+    save_s = time.perf_counter() - t0
     with torch.no_grad():
         faces = gen([session.sample_wplus(11, batch=8)], input_is_latent=True,
                     randomize_noise=False).image
-    x8 = adaptive_avg_pool(faces, 256).clamp(-1.0, 1.0)
+    return ckpt, path, save_s, adaptive_avg_pool(faces, 256).clamp(-1.0, 1.0)
+
+
+def phase_invert(session, card: str, work: str) -> tuple:
+    """Returns ({kernel: launches} of the main path, the card's PSp, its
+    checkpoint, the batch-1 input, the 8 256² faces); the checkpoint stays
+    in ``work`` for phase 15b."""
+    gen = session.generator
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ckpt, path, save_s, x8 = photo_inputs(session, work)
+    t0 = time.perf_counter()
+    psp = load_psp(app_argparser().parse_args([
+        "--e4e_ckpt", path, "--stylegan_size", str(SIZE), "--device", "cuda"]))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in psp.encoder.parameters())
     x1 = x8[:1].contiguous()
-    del faces
 
     def counts3():
         return k1.launches, k2.launches, k3.launches
@@ -1411,7 +1458,7 @@ def phase_invert(session, card: str) -> tuple:
           "kernel_launches_per_inversion": rec["kernel_launches"],
           "fp32_bound_ms": bound_ms, "bound_share_of_busy": bound_ms / rec["device_busy_ms"],
           "categories": rec["categories"], "top_kernels": rec["top_kernels"]})
-    return launches, psp, ckpt, x1
+    return launches, psp, ckpt, x1, x8
 
 
 def phase_invert_whole(psp, ckpt: dict, x1) -> None:
@@ -2262,6 +2309,363 @@ def phase_wplus_train(card: str, cluster_path: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 15a-15d: evaluation (cli/evaluate.py) and FID during training
+# ---------------------------------------------------------------------------
+
+EVAL_ITERS, EVAL_BATCH, EVAL_PROFILED = 8, 2, 2
+EVAL_STAGES = ("text", "faces", "edit", "clip_image", "arcface", "inception")
+IOU_PAIRS = 8
+# The extractors card against CPU, max |Δ| / max |CPU|: fp32 both sides
+# (cuDNN without TF32), ~90 convs (InceptionV3) or the 50-layer IR-SE
+# trunk (ArcFace) summed in another order.
+EVAL_REL_TOL = 1e-4
+# The edit sweep at 64², card against CPU from the same W+ and token ids:
+# the ID cosine within 1e-4 absolute; the InceptionV3 feature pools within
+# 1e-3 of their largest magnitude (two syntheses, each at phase 7's 1e-3
+# image bar, then a 299² resize and the extractor); the CLIP improvement (a
+# count of sign tests) equal.
+EVAL_ID_ABS_TOL, EVAL_POOL_REL_TOL = 1e-4, 1e-3
+FID_ARGS = ["--fid_every", "2", "--fid_n", "16", "--fid_batch", "8"]
+
+
+def evaluation_weights(work: str) -> dict:
+    """The seeded InceptionV3 (torchvision layout) and ArcFace IR-SE50
+    (reference layout) state dicts of ``tests/torch_parity.py``, saved
+    under ``work`` once; {name: path}."""
+    files = {"inception": os.path.join(work, "inception.pt"),
+             "arcface": os.path.join(work, "arcface.pt")}
+    for name, make in (("inception", inception_state), ("arcface", arcface_state)):
+        if not os.path.exists(files[name]):
+            torch.save(make(seed=0), files[name])
+    return files
+
+
+class StageProbe:
+    """The ``span`` of ``cli/evaluate.main``: each stage fenced by
+    ``torch.cuda.synchronize``, timed, and the launch counters read around
+    it; ``first`` names the stage that opens an iteration (an image in iou
+    mode). From iteration ``profile_from`` on, the stages run unfenced
+    inside ``record_function`` under ``torch.profiler`` (started at that
+    iteration's first stage; the wall clock stops, after a synchronize, at
+    the end of stage ``last`` of iteration ``iterations - 1``)."""
+
+    def __init__(self, first: str, iterations: int, profile_from=None, last=None):
+        self.first, self.iterations = first, iterations
+        self.profile_from, self.last = profile_from, last
+        self.iteration = -1
+        self.records = []          # (iteration, stage, ms, (K1, K2, K3))
+        self.prof = None
+        self.wall_us = None
+
+    @contextlib.contextmanager
+    def __call__(self, stage):
+        from torch.profiler import ProfilerActivity, profile, record_function  # noqa: PLC0415
+
+        if stage == self.first:
+            self.iteration += 1
+            if self.iteration == self.profile_from:
+                torch.cuda.synchronize()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+        if self.prof is not None:
+            with record_function(stage):
+                yield
+            if stage == self.last and self.iteration == self.iterations - 1:
+                torch.cuda.synchronize()
+                self.wall_us = (time.perf_counter() - self.t0) * 1e6
+            return
+        torch.cuda.synchronize()
+        before, t0 = counts(), time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        self.records.append((self.iteration, stage, (time.perf_counter() - t0) * 1e3,
+                             tuple(a - b for a, b in zip(counts(), before))))
+
+    def profile(self, spans: tuple) -> dict:
+        self.prof.__exit__(None, None, None)
+        check(self.wall_us is not None, "the profiled iterations ended")
+        return profile_summary(self.prof, self.wall_us, spans,
+                               self.iterations - self.profile_from)
+
+    def medians(self, skip: int = 1) -> dict:
+        """p50 ms of each stage over iterations ``skip`` on (iteration 0
+        builds cuDNN plans), summed per iteration first."""
+        per = defaultdict(lambda: defaultdict(float))
+        for it, stage, ms, _ in self.records:
+            if it >= skip:
+                per[stage][it] += ms
+        return {k: statistics.median(v.values()) for k, v in per.items()}
+
+
+def captured(fn):
+    """``fn()``'s result and what it printed (echoed here too)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def eval_counts(size: int) -> tuple:
+    """(K1 and K3 launches of one synthesis pass, the S-space mapper's K3
+    attention convs) at ``size``: conv1 and one 3x3 conv per octave, one
+    ToRGB each; the tapped layers' convs plus the first and the last."""
+    per_pass = int(math.log2(size)) - 1
+    return per_pass, len(attention_tables(size)["layer_num"]) + 2
+
+
+def phase_evaluate_edits(card: str, work: str) -> dict:
+    """15a: ``cli/evaluate.py edits`` through ``main`` at 1024² (attention
+    and cluster layer 13, ViT-B/32 with seeded random weights), batch 2, 8
+    iterations, with the seeded InceptionV3 and ArcFace from files; the
+    launch counters set to 0 just before. Returns {kernel: launches}."""
+    files = evaluation_weights(work)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = StageProbe("text", EVAL_ITERS, EVAL_ITERS - EVAL_PROFILED, "inception")
+    k1.launches = k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    result = evaluate.main([
+        "edits", "--stylegan_size", str(SIZE), "--attention_layer", str(ATTENTION_LAYER),
+        "--cluster_layer", str(ATTENTION_LAYER), "--iterations", str(EVAL_ITERS),
+        "--batch", str(EVAL_BATCH), "--inception_ckpt", files["inception"],
+        "--ir_se50_weights", files["arcface"], "--device", DEV,
+        "--description_dir", os.path.join(work, "no-captions")], span=probe)
+    wall_s = time.perf_counter() - t0
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    prof = probe.profile(EVAL_STAGES)
+    n = EVAL_ITERS * EVAL_BATCH
+    check(set(result) == {"clip_improvement", "fid_features", "n", "id_cosine"},
+          f"result keys {sorted(result)}")
+    check(result["n"] == n, f"n {result['n']}, expected {n}")
+    check(0.0 <= result["clip_improvement"] <= 1.0, f"clip_improvement {result}")
+    check(-1.0 <= result["id_cosine"] <= 1.0, f"id_cosine {result}")
+    check(math.isfinite(result["fid_features"]) and result["fid_features"] >= 0,
+          f"fid_features {result}")
+    per_pass, mapper_convs = eval_counts(SIZE)
+    expect = {"faces": (per_pass, 0, per_pass),
+              "edit": (per_pass, 0, per_pass + mapper_convs)}
+    for it, stage, _, got in probe.records:
+        check(got == expect.get(stage, (0, 0, 0)),
+              f"iteration {it} {stage}: launches (K1, K2, K3) {got}")
+    per_iter = total(expect["faces"], expect["edit"])
+    check(counts() == tuple(EVAL_ITERS * x for x in per_iter),
+          f"launches (K1, K2, K3) {counts()}, expected {EVAL_ITERS} x {per_iter}")
+    stage_ms = probe.medians()
+    emit({"phase": "evaluate_edits", "card": card, "size": SIZE,
+          "attention_layer": ATTENTION_LAYER, "iterations": EVAL_ITERS,
+          "batch": EVAL_BATCH, "result": result, "launches": launches,
+          "launches_per_iteration": dict(zip(("modconv3x3", "conv3x3", "modconv1x1"),
+                                             per_iter)),
+          "p50_stage_ms": stage_ms, "p50_iteration_ms": sum(stage_ms.values()),
+          "stage_ms": [r[:3] for r in probe.records], "main_wall_s": wall_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "note": "stages fenced by torch.cuda.synchronize over iterations 1-5 "
+                  "(iteration 0 builds cuDNN plans); iterations 6-7 unfenced "
+                  "under torch.profiler (the evaluate_profile line); main_wall_s "
+                  "includes loading the models and the host's FID"})
+    emit({"phase": "evaluate_profile", "card": card, "iterations": EVAL_PROFILED,
+          "wall_ms_per_iteration": prof["wall_ms"],
+          "device_busy_ms_per_iteration": prof["device_busy_ms"],
+          "device_idle_share": prof["device_idle_share"],
+          "kernel_launches_per_iteration": prof["kernel_launches"],
+          "stage_device_busy_ms_per_iteration": prof["span_device_busy_ms"],
+          "categories": prof["categories"], "top_kernels": prof["top_kernels"]})
+    return launches
+
+
+def write_celeba_pairs(root: str, faces: torch.Tensor, seed: int = 0) -> tuple:
+    """CelebAMask-HQ-style pairs under ``root``: ``img/{i}.jpg`` from the
+    256² faces (JPEG) and ``label/{i}.png``, seeded 0-13 class maps at
+    CelebAMask-HQ's 512² in 32-pixel cells. Returns (img_path, label_path)."""
+    from PIL import Image  # noqa: PLC0415
+
+    img_dir, lbl_dir = os.path.join(root, "img"), os.path.join(root, "label")
+    os.makedirs(img_dir)
+    os.makedirs(lbl_dir)
+    u8 = ((faces.float().cpu().numpy() + 1.0) * 127.5).round().clip(0, 255).astype(np.uint8)
+    rng = np.random.default_rng(seed)
+    for i, face in enumerate(u8):
+        Image.fromarray(face).save(os.path.join(img_dir, f"{i}.jpg"))
+        cells = rng.integers(0, 14, (16, 16)).astype(np.uint8)
+        Image.fromarray(cells.repeat(32, 0).repeat(32, 1), mode="L").save(
+            os.path.join(lbl_dir, f"{i}.png"))
+    return img_dir, lbl_dir
+
+
+def phase_evaluate_iou(card: str, work: str, faces: torch.Tensor) -> dict:
+    """15b: ``cli/evaluate.py iou`` through ``main`` at 1024² on 8
+    synthetic pairs (phase 7a's seeded faces pooled to 256², as JPEGs;
+    seeded 0-13 label PNGs) with phase 7a's e4e checkpoint; the launch
+    counters set to 0 just before. Returns {kernel: launches}."""
+    img_dir, lbl_dir = write_celeba_pairs(os.path.join(work, "celeba"), faces)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = StageProbe("invert", IOU_PAIRS)
+    k1.launches = k2.launches = k3.launches = 0
+    t0 = time.perf_counter()
+    macro, printed = captured(lambda: evaluate.main([
+        "iou", "--stylegan_size", str(SIZE), "--attention_layer", str(ATTENTION_LAYER),
+        "--cluster_layer", str(ATTENTION_LAYER), "--e4e_ckpt", os.path.join(work, "e4e.pt"),
+        "--img_path", img_dir, "--label_path", lbl_dir, "--device", DEV], span=probe))
+    wall_s = time.perf_counter() - t0
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    out = json.loads(printed.strip().splitlines()[-1])
+    per_class = out["per_class_iou"]
+    check(len(per_class) == 8 and all(0.0 <= v <= 1.0 for v in per_class),
+          f"per-class IoU {per_class}")
+    check(0.0 <= macro <= 1.0 and out["macro_iou"] == macro, f"macro IoU {macro}")
+    per_pass, mapper_convs = eval_counts(SIZE)
+    expect = {"capture": (per_pass, 0, per_pass), "mapper": (0, 0, mapper_convs)}
+    mapper_calls = defaultdict(int)
+    for it, stage, _, got in probe.records:
+        check(got == expect.get(stage, (0, 0, 0)),
+              f"image {it} {stage}: launches (K1, K2, K3) {got}")
+        mapper_calls[it] += stage == "mapper"
+    check(probe.iteration == IOU_PAIRS - 1
+          and set(mapper_calls.values()) == {len(IOU_PROMPTS)},
+          f"{probe.iteration + 1} images, mapper calls {dict(mapper_calls)}")
+    per_image = total(expect["capture"],
+                      tuple(len(IOU_PROMPTS) * x for x in expect["mapper"]))
+    check(counts() == tuple(IOU_PAIRS * x for x in per_image),
+          f"launches (K1, K2, K3) {counts()}, expected {IOU_PAIRS} x {per_image}")
+    stage_ms = probe.medians()
+    emit({"phase": "evaluate_iou", "card": card, "size": SIZE, "pairs": IOU_PAIRS,
+          "attention_layer": ATTENTION_LAYER, "per_class_iou": per_class,
+          "macro_iou": macro, "launches": launches,
+          "launches_per_image": dict(zip(("modconv3x3", "conv3x3", "modconv1x1"),
+                                         per_image)),
+          "p50_stage_ms_per_image": stage_ms, "p50_image_ms": sum(stage_ms.values()),
+          "stage_ms": [r[:3] for r in probe.records], "main_wall_s": wall_s,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "note": "per image: invert (e4e at 256², batch 1), capture (the 1024² "
+                  "synthesis with taps), mapper (8 region prompts, summed); "
+                  "fenced by torch.cuda.synchronize, p50 over images 1-7; random "
+                  "weights and labels, so the IoU values carry no meaning"})
+    return launches
+
+
+def phase_evaluate_whole(card: str, work: str) -> None:
+    """15c: card against CPU on the same seeded weights: InceptionV3 at
+    batch 2, 299² (features and logits), ArcFace at batch 2, 112²
+    (``EVAL_REL_TOL``); the edit sweep's ``EditEvaluator`` at 64² (attention
+    and cluster layer 7), the same W+ and token ids on both sides, through
+    the CLI's own loaders (``EVAL_*_TOL``)."""
+    files = evaluation_weights(work)
+    g = torch.Generator().manual_seed(21)
+    rec = {"phase": "evaluate_whole", "card": card}
+    inc_sd = torch.load(files["inception"], weights_only=True)
+    arc_sd = torch.load(files["arcface"], weights_only=True)
+    for name, build, shape in (
+            ("inception", lambda: InceptionV3.from_state_dict(inc_sd), (2, 299, 299, 3)),
+            ("arcface", lambda: Backbone.from_state_dict(arc_sd, drop_ratio=0.6),
+             (2, 112, 112, 3))):
+        x = torch.rand(shape, generator=g) * 2 - 1
+        cpu, gpu = build().eval(), build().to(DEV).eval()
+        with torch.no_grad():
+            want, got = cpu(x), gpu(x.to(DEV))
+        outs = (("features", "logits") if name == "inception" else ("embedding",))
+        want = want if isinstance(want, tuple) else (want,)
+        got = got if isinstance(got, tuple) else (got,)
+        for key, w, o in zip(outs, want, got):
+            rec[f"{name}_{key}_rel_err"] = rel_err(o.cpu(), w)[1]
+        del cpu, gpu
+    rec["extractor_rel_tol"] = EVAL_REL_TOL
+
+    size, layer = 64, 7
+    evals = []
+    n = counts()
+    for dev in ("cpu", DEV):
+        args = evaluate.build_argparser().parse_args([
+            "edits", "--stylegan_size", str(size), "--attention_layer", str(layer),
+            "--cluster_layer", str(layer), "--iterations", "2", "--batch", "2",
+            "--device", dev, "--description_dir", os.path.join(work, "no-captions")])
+        session, closs = evaluate.load_models(args)
+        if dev == "cpu":
+            bank = [session.sample_wplus(100 + i, batch=2) for i in range(2)]
+        ev = EditEvaluator(
+            edit_fn=evaluate.make_edit_fn(session, wplus_for=lambda i: bank[i].to(dev)),
+            encode_image=closs.encode_image, encode_text=closs.encode_text,
+            id_extract=evaluate.load_id_extract(files["arcface"], dev),
+            fid_extract=evaluate.load_fid_extract(files["inception"], dev))
+        result = ev.run(range(2), evaluate.sweep_prompts(args, random.Random(0), dev))
+        evals.append((result, ev.feats_gen, ev.feats_orig))
+    sync()
+    launched = tuple(a - b for a, b in zip(counts(), n))
+    (r_c, gen_c, orig_c), (r_g, gen_g, orig_g) = evals
+    pool_rel = max(rel_err(torch.from_numpy(gen_g), torch.from_numpy(gen_c))[1],
+                   rel_err(torch.from_numpy(orig_g), torch.from_numpy(orig_c))[1])
+    rec.update({"sweep_size": size, "sweep_attention_layer": layer,
+                "result_cpu": r_c, "result_card": r_g,
+                "id_cosine_abs_err": abs(r_g["id_cosine"] - r_c["id_cosine"]),
+                "pool_rel_err": pool_rel, "card_launches": launched,
+                "id_abs_tol": EVAL_ID_ABS_TOL, "pool_rel_tol": EVAL_POOL_REL_TOL})
+    emit(rec)
+    for key, v in rec.items():
+        if key.endswith("_rel_err") and key != "pool_rel_err":
+            check(v <= EVAL_REL_TOL, f"{key} {v}")
+    check(launched[0] > 0 and launched[2] > 0, "the card's sweep ran on K1 and K3")
+    check(r_g["clip_improvement"] == r_c["clip_improvement"] and r_g["n"] == r_c["n"],
+          f"clip_improvement card {r_g} vs CPU {r_c}")
+    check(rec["id_cosine_abs_err"] <= EVAL_ID_ABS_TOL,
+          f"id_cosine card vs CPU {rec['id_cosine_abs_err']}")
+    check(pool_rel <= EVAL_POOL_REL_TOL, f"feature pools card vs CPU {pool_rel}")
+
+
+def phase_train_fid(card: str, work: str) -> dict:
+    """15d: ``cli/train_stylegan.py`` at 1024², batch 8, 2 iterations with
+    ``--fid_every 2 --fid_n 16 --fid_batch 8`` and the seeded InceptionV3;
+    the launch counters set to 0 just before: the training programs as
+    phase 8 counts them, the real pool's features no kernel, the FID pass
+    two syntheses of the EMA generator. Returns {kernel: launches}."""
+    files = evaluation_weights(work)
+    probe = TrainProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k3.launches = 0
+    args = [*TRAIN_ARGS[:TRAIN_ARGS.index("--iter") + 1], "2",
+            *TRAIN_ARGS[TRAIN_ARGS.index("--iter") + 2:]]
+    with tempfile.TemporaryDirectory() as results:
+        trainer, printed = captured(lambda: train_stylegan.main(
+            [*args, *FID_ARGS, "--inception_ckpt", files["inception"],
+             "--device", DEV, "--results_dir", results], span=probe))
+        fids = [r for r in read_scalars(os.path.join(results, "logs"))
+                if r["tag"] == "eval/fid"]
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    per_pass, _ = eval_counts(SIZE)
+    expect = train_launches(trainer.g.log_size - 2)
+    expect.update({"fid_reals": ((0, 0, 0), (0, 0, 0)),
+                   "fid": ((2 * per_pass, 0, 2 * per_pass), (0, 0, 0))})
+    for step, program, _, got in probe.records:
+        fwd, bwd = expect.get(program, ((0, 0, 0), (0, 0, 0)))
+        check(got == total(fwd, bwd), f"iteration {step} {program}: launches "
+                                      f"(K1, K2, K3) {got}, expected {fwd} + {bwd}")
+    lines = [ln for ln in printed.splitlines() if "fid=" in ln]
+    check(len(lines) == 1 and math.isfinite(float(lines[0].split("fid=")[1])),
+          f"printed FID lines {lines}")
+    check([r["step"] for r in fids] == [2] and math.isfinite(fids[0]["value"]),
+          f"logged eval/fid {fids}")
+    ms = {p: [t for _, q, t, _ in probe.records if q == p] for p in ("fid_reals", "fid")}
+    emit({"phase": "train_fid", "card": card, "size": SIZE,
+          "batch": trainer.cfg.batch_size, "iterations": trainer.global_step,
+          "fid_args": FID_ARGS, "fid": fids[0]["value"], "launches": launches,
+          "fid_pass_ms": ms["fid"], "fid_reals_ms": ms["fid_reals"],
+          "ms_per_program": {p: [t for _, q, t, _ in probe.records if q == p]
+                             for p in (*PROGRAMS, "ema")},
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "note": "fid_pass_ms: the EMA generator's samples (fid_n in batches "
+                  "of fid_batch), InceptionV3 at 299², and the host's Fréchet "
+                  "distance (2048-d); fid_reals_ms: the real pool's features, "
+                  "once before step 0"})
+    return launches
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2272,33 +2676,38 @@ def main(argv=None) -> None:
     try:
         card = phase_device()
         phase_build()
-        totals = phase_kernels()
-        train_fwd_err, backward_err = phase_backward()
-        edit_launches, session, s_per_edit, s_p50 = phase_slice()
-        phase_profile(session, card)
-        whole = phase_whole()
-        wplus_launches, wplus_p50 = phase_wplus_edit(session, s_per_edit, whole, card)
-        del whole
-        server_launches = phase_server(session, card,
-                                       {"s_space": s_p50, "wplus": wplus_p50})
-        invert_launches, psp, ckpt, x1 = phase_invert(session, card)
-        del session
-        phase_invert_whole(psp, ckpt, x1)
-        del psp, ckpt
-        train_launches_run, backward_launches, trainer = phase_train(card)
-        phase_train_profile(trainer, card)
-        del trainer
-        phase_train_whole()
-        with tempfile.TemporaryDirectory() as keep:
-            cluster_launches, cluster_path = phase_cluster(card, keep)
-            attention_run, attention_backward, trainer, final_path = phase_attention(
-                card, cluster_path, keep)
-            phase_attention_profile(trainer, card)
+        with tempfile.TemporaryDirectory() as work:
+            totals = phase_kernels()
+            train_fwd_err, backward_err = phase_backward()
+            edit_launches, session, s_per_edit, s_p50 = phase_slice()
+            phase_profile(session, card)
+            whole = phase_whole()
+            wplus_launches, wplus_p50 = phase_wplus_edit(session, s_per_edit, whole, card)
+            del whole
+            server_launches = phase_server(session, card,
+                                           {"s_space": s_p50, "wplus": wplus_p50})
+            invert_launches, psp, ckpt, x1, faces = phase_invert(session, card, work)
+            del session
+            phase_invert_whole(psp, ckpt, x1)
+            del psp, ckpt
+            train_launches_run, backward_launches, trainer = phase_train(card)
+            phase_train_profile(trainer, card)
             del trainer
-            torch.cuda.empty_cache()
-            phase_attention_whole()
-            load_launches = phase_mapper_load(card, final_path)
-            wplus_train_launches = phase_wplus_train(card, cluster_path)
+            phase_train_whole()
+            with tempfile.TemporaryDirectory() as keep:
+                cluster_launches, cluster_path = phase_cluster(card, keep)
+                attention_run, attention_backward, trainer, final_path = phase_attention(
+                    card, cluster_path, keep)
+                phase_attention_profile(trainer, card)
+                del trainer
+                torch.cuda.empty_cache()
+                phase_attention_whole()
+                load_launches = phase_mapper_load(card, final_path)
+                wplus_train_launches = phase_wplus_train(card, cluster_path)
+            eval_launches = {"evaluate_edits": phase_evaluate_edits(card, work),
+                             "evaluate_iou": phase_evaluate_iou(card, work, faces)}
+            phase_evaluate_whole(card, work)
+            eval_launches["train_fid"] = phase_train_fid(card, work)
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -2328,7 +2737,8 @@ def main(argv=None) -> None:
                    "invert": invert_launches[name],
                    "train": train_launches_run[name], "cluster": cluster_launches[name],
                    "attention": attention_run[name], "mapper_load": load_launches[name],
-                   "wplus_train": wplus_train_launches[name]}
+                   "wplus_train": wplus_train_launches[name],
+                   **{path: got[name] for path, got in eval_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -2368,8 +2778,10 @@ def main(argv=None) -> None:
                     "passes, the k-means CLI's (phase 11), the attention "
                     "trainer's CLI run (phase 12), of which "
                     "attention_backward_launches inside backward passes, "
-                    "the --mapper loads' edits (phase 14a) and the W+ "
-                    "trainer's 1024² CLI run (phase 14b)"})
+                    "the --mapper loads' edits (phase 14a), the W+ "
+                    "trainer's 1024² CLI run (phase 14b), cli/evaluate.py's "
+                    "edits and iou runs (phases 15a, 15b) and the trainer's "
+                    "run with --fid_every (phase 15d)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -44,6 +44,11 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.cli.run_attention",
     # trained mappers served: the W+ family, the ablation nets, the server
     "where2edit_tpu_torch.editing.modules", "where2edit_tpu_torch.demo.server",
+    # evaluation: FID / IS / SSIM, the mIoU, InceptionV3, ArcFace
+    "where2edit_tpu_torch.eval", "where2edit_tpu_torch.eval.metrics",
+    "where2edit_tpu_torch.eval.ssim", "where2edit_tpu_torch.eval.iou",
+    "where2edit_tpu_torch.models.inception", "where2edit_tpu_torch.models.state",
+    "where2edit_tpu_torch.losses.id_loss", "where2edit_tpu_torch.cli.evaluate",
 }
 
 
@@ -53,7 +58,7 @@ def test_torch_port_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     count, bad, names = out.stdout.strip().split(" ", 2)
-    assert int(count) >= 33
+    assert int(count) >= 41
     assert bad == "[]"
     assert NEW_MODULES <= set(names.split())
 
@@ -101,3 +106,20 @@ def test_torch_training_entry_points_need_a_card_unless_told(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_attention.main(["--stylegan_size", "8", "--work_in_stylespace",
                             "--use_cluster", "--results_dir", str(tmp_path)])
+
+
+def test_torch_evaluate_needs_a_card_unless_told(tmp_path):
+    """``cli/evaluate.py`` refuses in both modes without a card, before any
+    work, and runs on the CPU only when ``--device cpu`` says so."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
+    from where2edit_tpu_torch.cli import evaluate  # noqa: PLC0415
+
+    small = ["--stylegan_size", "8", "--attention_layer", "4", "--cluster_layer", "4"]
+    for mode in ("edits", "iou"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            evaluate.main([mode, *small, "--e4e_ckpt", str(tmp_path / "e4e.pt")])
+    with pytest.raises(SystemExit, match="no CelebAMask-HQ data"):
+        torch.save({}, tmp_path / "e4e.pt")
+        evaluate.main(["iou", *small, "--device", "cpu", "--e4e_ckpt",
+                       str(tmp_path / "e4e.pt"), "--img_path", str(tmp_path / "none")])

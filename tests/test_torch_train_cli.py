@@ -1,19 +1,30 @@
 """The port's adversarial-training entry point on the CPU: the CLI end to
 end (it writes checkpoints) and ``--resume`` continuing one exactly as the
-uninterrupted run did; and the kernel calls per training program, which
+uninterrupted run did; ``--fid_every`` (the EMA generator's FID, logged as
+``eval/fid``); and the kernel calls per training program, which
 ``chip_smoke.py`` holds the card's launch counters to
 (``chip_smoke.train_launches``)."""
 
 import contextlib
+import os
 
+import numpy as np
 import pytest
 import torch
 
 from where2edit_tpu_torch.cli import train_stylegan
+from where2edit_tpu_torch.cli.run_attention import load_clip
+from where2edit_tpu_torch.eval.metrics import frechet_distance
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
+from where2edit_tpu_torch.models.clip_model import CLIP
+from where2edit_tpu_torch.train.datasets import ImageBank
 from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+from where2edit_tpu_torch.utils.logging import read_scalars
+
+from torch_parity import TINY_CLIP
 
 ARGS = ["--synthetic", "6", "--size", "16", "--batch", "4", "--device", "cpu",
         "--save_every", "1"]
@@ -97,3 +108,36 @@ def test_torch_train_launches_per_program(monkeypatch):
 
     tr.step(torch.rand(2, 16, 16, 3) * 2 - 1, span)
     assert got == {**chip_smoke.train_launches(2), "ema": ((0, 0, 0), (0, 0, 0))}
+
+
+def test_torch_train_cli_fid_every(tmp_path):
+    """``--fid_every 1`` at 32² with CLIP-FID (a small CLIP from
+    ``--clip_ckpt``; the InceptionV3 extractor runs in chip_smoke.py's
+    phase 15d and tests/test_torch_inception.py): a finite FID of the EMA
+    generator against the real pool (drawn from seed + 3) over the fixed z
+    pool (seed + 4), logged as ``eval/fid``; recomputed from the returned
+    trainer's EMA generator and the same pools it is the same number."""
+    clip = tmp_path / "clip.pt"
+    torch.save(CLIP(**TINY_CLIP, rng=torch.Generator().manual_seed(0)).state_dict(), clip)
+    out = tmp_path / "run"
+    trainer = train_stylegan.main([
+        "--synthetic", "6", "--size", "32", "--batch", "2", "--device", "cpu",
+        "--save_every", "0", "--iter", "1", "--fid_every", "1", "--fid_n", "3",
+        "--fid_batch", "2", "--clip_ckpt", str(clip), "--results_dir", str(out)])
+    rows = read_scalars(os.path.join(out, "logs"))
+    fids = [r for r in rows if r["tag"] == "eval/fid"]
+    assert [r["step"] for r in fids] == [1] and np.isfinite(fids[0]["value"])
+    assert {"train/d_loss", "train/g_loss"} <= {r["tag"] for r in rows}
+
+    extract = CLIPLoss(load_clip(str(clip), "cpu"), 32).encode_image
+    bank = ImageBank(images=np.random.default_rng(0).uniform(
+        -1.0, 1.0, (6, 32, 32, 3)).astype(np.float32))
+    real_rng = np.random.default_rng(3)  # --fid_n 3 rounds up to 2 batches of 2
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal((4, 512)).astype(np.float32))
+    with torch.no_grad():
+        real = np.concatenate([extract(torch.from_numpy(bank.sample(real_rng, 2))).numpy()
+                               for _ in range(2)])
+        fake = np.concatenate([extract(trainer.g_ema([z[i:i + 2]], randomize_noise=False)
+                                       .image).numpy() for i in (0, 2)])
+    assert real.shape == fake.shape == (4, 512)
+    assert frechet_distance(real, fake) == fids[0]["value"]

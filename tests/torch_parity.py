@@ -5,18 +5,23 @@ init leaves a path dormant (noise buffers and gains, activation and ToRGB
 biases start at zero), and handed to both packages: JAX keeps its tree, the
 port loads it through ``where2edit_tpu_torch.convert``. Inputs come from a
 numpy seed and cross as numpy arrays.
+
+JAX is imported inside the functions that use it, so ``chip_smoke.py``
+(on a machine without JAX) draws the evaluation's seeded weights from the
+same builders (``inception_state``, ``arcface_state``) as the tests.
 """
 
-import jax
-import jax.numpy as jnp
+import math
+
 import numpy as np
-import optax
 import torch
 
 from where2edit_tpu_torch import convert
 
 
 def np_tree(tree):
+    import jax  # noqa: PLC0415
+
     return jax.tree.map(np.asarray, tree)
 
 
@@ -38,6 +43,9 @@ def perturb(tree, rng, scale: float = 0.3):
 
 def jax_generator(size: int, seed: int = 0):
     """(flax Generator, perturbed numpy variables)."""
+    import jax  # noqa: PLC0415
+    import jax.numpy as jnp  # noqa: PLC0415
+
     from where2edit_tpu.models.stylegan2 import Generator  # noqa: PLC0415
 
     gen = Generator(size=size)
@@ -119,6 +127,9 @@ def attention_models(mapper: str = "FullSpaceMapperFEATClusterLinStyle") -> dict
     the map; near 0.8 the coverage penalty, a sum of (mean - 0.8) over the
     regions, would be a difference of near-equal numbers, which no relative
     bar can hold), and a mean latent."""
+    import jax  # noqa: PLC0415
+    import jax.numpy as jnp  # noqa: PLC0415
+
     from where2edit_tpu.editing import attention_mappers as jam  # noqa: PLC0415
     from where2edit_tpu.models.clip_model import CLIP  # noqa: PLC0415
     from where2edit_tpu.models.vgg import Vgg16  # noqa: PLC0415
@@ -199,6 +210,8 @@ def attention_trainer(m: dict, freeze: float = 1.15, perceptual=None, **kw):
 def jax_attention_draws(key, n_bank=None, n_text=None):
     """The draws the JAX ``_step`` makes from ``key`` (k1: the condition,
     k2: the target, k3: the region prompts), as a port ``Draws``."""
+    import jax  # noqa: PLC0415
+
     from where2edit_tpu_torch.train.attention_trainer import Draws  # noqa: PLC0415
 
     k1, k2, k3 = jax.random.split(key, 3)
@@ -217,6 +230,10 @@ def jax_attention_step(m: dict, key, step_idx: int, bank, latent_bank=None,
     ``_step``. The JAX package stays as it is: its trainer gets an optax
     chain whose first link keeps the gradients it receives, and ``_step``
     is jitted again."""
+    import jax  # noqa: PLC0415
+    import jax.numpy as jnp  # noqa: PLC0415
+    import optax  # noqa: PLC0415
+
     from where2edit_tpu.losses.clip_loss import CLIPLoss  # noqa: PLC0415
     from where2edit_tpu.losses.perceptual import PerceptualLoss  # noqa: PLC0415
     from where2edit_tpu.train import attention_trainer as jat  # noqa: PLC0415
@@ -266,3 +283,57 @@ def compare_attention_step(aux_t: dict, aux_j: dict, trainer, grads_j: dict) -> 
         diff2, ref2 = diff2 + d2, ref2 + r2
         assert d2 == 0.0 or (d2 / r2) ** 0.5 <= ATT_PARAM_GRAD_TOL, name
     assert (diff2 / ref2) ** 0.5 <= ATT_MODEL_GRAD_TOL
+
+
+# ---------------------------------------------------------------------------
+# the evaluation's extractors: seeded state dicts in the layouts their
+# checkpoints ship in (test_torch_inception.py, test_torch_arcface.py,
+# test_torch_evaluate_cli.py, chip_smoke.py)
+# ---------------------------------------------------------------------------
+
+def _seeded_state(module_fn, seed: int, conv_gain: float) -> dict:
+    """The state-dict layout of ``module_fn()`` (built on the meta device)
+    filled from ``np.random.default_rng(seed)``, in key order: convs
+    N(0, conv_gain/fan_in), linears N(0, 1/fan_in), biases and running
+    means N(0, 0.01), BatchNorm scales 1 + N(0, 0.01), running variances
+    U(0.5, 1.5), PReLU slopes 0.25 + N(0, 0.01): the running statistics are
+    exercised, and activations keep O(1) scale through the depth."""
+    with torch.device("meta"):
+        layout = module_fn().state_dict()
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in layout.items():
+        shape = tuple(v.shape)
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.tensor(0)
+            continue
+        if k.endswith("running_var"):
+            a = rng.uniform(0.5, 1.5, shape)
+        elif k.endswith(("running_mean", "bias")):
+            a = 0.1 * rng.standard_normal(shape)
+        elif len(shape) == 4:
+            a = rng.standard_normal(shape) * math.sqrt(conv_gain / np.prod(shape[1:]))
+        elif len(shape) == 2:
+            a = rng.standard_normal(shape) / math.sqrt(shape[1])
+        elif k.endswith(("input_layer.2.weight", "res_layer.2.weight")):
+            a = 0.25 + 0.1 * rng.standard_normal(shape)
+        else:
+            a = 1.0 + 0.1 * rng.standard_normal(shape)
+        sd[k] = torch.from_numpy(a.astype(np.float32))
+    return sd
+
+
+def inception_state(seed: int = 0) -> dict:
+    """A torchvision-layout InceptionV3 state dict (1008 classes) with
+    He-scaled convs (each is followed by a ReLU)."""
+    from where2edit_tpu_torch.models.inception import InceptionV3  # noqa: PLC0415
+
+    return _seeded_state(InceptionV3, seed, conv_gain=2.0)
+
+
+def arcface_state(seed: int = 0, input_size: int = 112) -> dict:
+    """A reference-layout ArcFace IR-SE50 state dict (``input_layer.*``,
+    ``body.*``, ``output_layer.*``)."""
+    from where2edit_tpu_torch.models.irse import Backbone  # noqa: PLC0415
+
+    return _seeded_state(lambda: Backbone(input_size), seed, conv_gain=1.0)

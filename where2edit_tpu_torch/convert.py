@@ -293,16 +293,10 @@ def _index(tree: dict, j: int) -> dict:
             for k, v in tree.items()}
 
 
-def encoder_state_dict(variables: dict, kind: str = "e4e",
-                       stylegan_size: int = 1024, num_layers: int = 50) -> dict:
-    """``{"params", "batch_stats"}`` of a ``where2edit_tpu.models.encoders``
-    encoder -> the reference-layout state dict (the inverse of
-    ``where2edit_tpu/convert/irse.py::convert_encoder_params``). ``kind``:
-    'gradual', 'e4e' or 'w'. The 50-layer trunk's stage tails and the
-    three style groups are stacked along axis 0 there and come apart here;
-    other depths are unrolled there too."""
-    params, stats = variables["params"], variables["batch_stats"]
-    bp, bs = params["body"], stats["body"]
+def _irse_body(bp: dict, bs: dict, num_layers: int) -> dict:
+    """The IR-SE trunk's ``input_layer.*`` and ``body.*`` entries from the
+    JAX ``IRSEBody`` params / batch stats (the 50-layer trunk's stage tails
+    stacked along axis 0 there come apart here)."""
     sd = {"input_layer.0.weight": _conv_w(bp["input_conv"]["weight"]),
           "input_layer.2.weight": _t(bp["input_prelu"]["alpha"])}
     sd.update(_batch_norm(bp["input_bn"], bs["input_bn"], "input_layer.1"))
@@ -316,6 +310,19 @@ def encoder_state_dict(variables: dict, kind: str = "e4e",
                 p, s = bp[f"body_{idx}"], bs[f"body_{idx}"]
             sd.update(_bottleneck(p, s, f"body.{idx}"))
             idx += 1
+    return sd
+
+
+def encoder_state_dict(variables: dict, kind: str = "e4e",
+                       stylegan_size: int = 1024, num_layers: int = 50) -> dict:
+    """``{"params", "batch_stats"}`` of a ``where2edit_tpu.models.encoders``
+    encoder -> the reference-layout state dict (the inverse of
+    ``where2edit_tpu/convert/irse.py::convert_encoder_params``). ``kind``:
+    'gradual', 'e4e' or 'w'. The 50-layer trunk's stage tails and the
+    three style groups are stacked along axis 0 there and come apart here;
+    other depths are unrolled there too."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _irse_body(params["body"], stats["body"], num_layers)
     if kind == "w":
         sd.update(_equal_linear(params["linear"], "linear"))
         return sd
@@ -337,6 +344,50 @@ def encoder_state_dict(variables: dict, kind: str = "e4e",
     for name in ("latlayer1", "latlayer2"):
         sd[f"{name}.weight"] = _conv_w(params[name]["weight"])
         sd[f"{name}.bias"] = _t(params[name]["bias"])
+    return sd
+
+
+def backbone_state_dict(variables: dict, num_layers: int = 50) -> dict:
+    """``{"params", "batch_stats"}`` of a ``where2edit_tpu.models.irse.Backbone``
+    → the reference ArcFace layout (``input_layer.*``, ``body.*``,
+    ``output_layer.{0,3,4}.*``), the inverse of
+    ``where2edit_tpu/convert/irse.py::convert_backbone_params``. Without
+    ``output_bn1d`` params the net is ``affine=False``: only the running
+    statistics of ``output_layer.4``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = _irse_body(params["body"], stats["body"], num_layers)
+    sd.update(_batch_norm(params["output_bn"], stats["output_bn"], "output_layer.0"))
+    sd["output_layer.3.weight"] = _lin_w(params["output_weight"])
+    sd["output_layer.3.bias"] = _t(params["output_bias"])
+    bn1d = stats["output_bn1d"]
+    if "output_bn1d" in params:
+        sd.update(_batch_norm(params["output_bn1d"], bn1d, "output_layer.4"))
+    else:
+        sd["output_layer.4.running_mean"] = _t(bn1d["mean"])
+        sd["output_layer.4.running_var"] = _t(bn1d["var"])
+    return sd
+
+
+def inception_state_dict(variables: dict) -> dict:
+    """``{"params", "batch_stats"}`` of a ``where2edit_tpu.models.inception.
+    InceptionV3`` → torchvision's keys (``{block}.{branch}.conv.weight``,
+    ``.bn.*``, ``fc.*``), the inverse of
+    ``where2edit_tpu/convert/inception.py::convert_inception_params``."""
+    params, stats = variables["params"], variables["batch_stats"]
+    sd = {}
+
+    def basic(p: dict, s: dict, prefix: str):
+        sd[f"{prefix}.conv.weight"] = _conv_w(p["weight"])
+        sd.update(_batch_norm(p["bn"], s["bn"], f"{prefix}.bn"))
+
+    for name, p in params.items():
+        if name.startswith("Conv2d_"):
+            basic(p, stats[name], name)
+        elif name.startswith("Mixed_"):
+            for branch, bp in p.items():
+                basic(bp, stats[name][branch], f"{name}.{branch}")
+    sd["fc.weight"] = _lin_w(params["fc_weight"])
+    sd["fc.bias"] = _t(params["fc_bias"])
     return sd
 
 

@@ -114,11 +114,14 @@ def load_mapper_state(mapper, state_dict: dict, path: str = "the checkpoint"):
     return mapper
 
 
-def load_session(args) -> EditSession:
+def load_session(args, encode_text=None) -> EditSession:
     """The demo's S-space session from the parsed flags: ``build_models``'
     seeded weights, with the generator's from ``--ckpt`` (its ``g_ema``
     entry, or the whole file as a state dict) when that file exists, the
-    mapper's from ``--mapper`` and the text tower from ``--clip_ckpt``."""
+    mapper's from ``--mapper`` and the text tower from ``--clip_ckpt``.
+    ``encode_text``, when given, is the session's text encoder instead (a
+    caller that holds a whole CLIP encodes text and images with one
+    model)."""
     dev = resolve_device(args.device)
     gen, mapper, text = build_models(args.stylegan_size, args.attention_layer,
                                      args.cluster_layer)
@@ -130,7 +133,9 @@ def load_session(args) -> EditSession:
     else:
         print("[warn] no --mapper checkpoint: the mapper has seeded random "
               "weights", file=sys.stderr)
-    if args.clip_ckpt:
+    if encode_text is not None:
+        encode = encode_text
+    elif args.clip_ckpt:
         encode = load_clip(args.clip_ckpt, dev).encode_text
     else:
         print("[warn] no --clip_ckpt: the CLIP text tower has seeded random "

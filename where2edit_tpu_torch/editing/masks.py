@@ -22,3 +22,9 @@ def finalize_attention_map(m: torch.Tensor, threshold: float = 0.8,
 def demo_threshold(m: torch.Tensor, threshold: float) -> torch.Tensor:
     """Zero below threshold."""
     return torch.where(m < threshold, torch.zeros_like(m), m)
+
+
+def binarize_for_iou(m: torch.Tensor) -> torch.Tensor:
+    """Below 0.8 → 0, then above 0.7 → 1: a hard 0/1 step at 0.8."""
+    m = torch.where(m < 0.8, torch.zeros_like(m), m)
+    return torch.where(m > 0.7, torch.ones_like(m), m)

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from where2edit_tpu_torch.models.state import assign_state
+
 # body indices whose outputs feed the encoders' FPN (c1, c2, c3)
 FPN_TAPS = (6, 20, 23)
 
@@ -154,3 +156,64 @@ class IRSEBody(nn.Module):
         if want_taps:
             return out, {i: t.permute(0, 2, 3, 1) for i, t in taps.items()}
         return out
+
+
+class BatchNorm1d(nn.BatchNorm1d):
+    """BatchNorm1d on its running statistics, as ``BatchNorm2d``; without
+    ``affine`` it has no scale or shift (the reference's ``affine=False``)."""
+
+    def __init__(self, channels: int, affine: bool = True,
+                 rng: torch.Generator | None = None):
+        super().__init__(channels, eps=1e-5, affine=affine)
+        with torch.no_grad():
+            self.running_mean.copy_(0.1 * torch.randn(channels, generator=rng))
+            self.running_var.copy_(torch.rand(channels, generator=rng) + 0.5)
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+class Backbone(IRSEBody):
+    """The ArcFace recognition net (counterpart of
+    where2edit_tpu/models/irse.py ``Backbone``): the IR-SE trunk, then
+    ``output_layer`` = BatchNorm2d, Dropout (inert: the net is frozen),
+    Flatten (NCHW, as the reference's Linear expects), Linear(512·s² → 512),
+    BatchNorm1d; the output is L2-normalised. (B, input_size, input_size, 3)
+    in, (B, 512) out."""
+
+    def __init__(self, input_size: int = 112, num_layers: int = 50,
+                 mode: str = "ir_se", drop_ratio: float = 0.4,
+                 affine: bool = True, rng: torch.Generator | None = None):
+        if input_size not in (112, 224):
+            raise ValueError(f"input_size must be 112 or 224, not {input_size}")
+        super().__init__(num_layers, mode, rng)
+        spatial = input_size // 16
+        linear = nn.Linear(512 * spatial ** 2, 512, device="meta")
+        linear.weight = nn.Parameter(torch.randn(linear.weight.shape, generator=rng)
+                                     / math.sqrt(linear.in_features))
+        linear.bias = nn.Parameter(0.1 * torch.randn(512, generator=rng))
+        self.output_layer = nn.Sequential(
+            BatchNorm2d(512, rng), nn.Dropout(drop_ratio), nn.Flatten(),
+            linear, BatchNorm1d(512, affine, rng))
+        self.input_size = input_size
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out, _ = self.trunk(x.permute(0, 3, 1, 2).contiguous())
+        bn2d, _, flatten, linear, bn1d = self.output_layer  # no dropout
+        out = bn1d(linear(flatten(bn2d(out))))
+        return out / torch.linalg.norm(out, dim=1, keepdim=True)
+
+    @classmethod
+    def from_state_dict(cls, state_dict: dict, input_size: int = 112,
+                        num_layers: int = 50, mode: str = "ir_se",
+                        drop_ratio: float = 0.4) -> "Backbone":
+        """A reference-layout ArcFace state dict (``input_layer.*``,
+        ``body.*``, ``output_layer.*``) → ``Backbone`` on the CPU, built on
+        the meta device and holding the dict's tensors; ``affine`` is read
+        from the dict (``output_layer.4.weight``). Missing or unexpected
+        keys raise."""
+        with torch.device("meta"):
+            model = cls(input_size, num_layers, mode, drop_ratio,
+                        affine="output_layer.4.weight" in state_dict)
+        return assign_state(model, state_dict)

@@ -1,4 +1,5 @@
-"""Real images for adversarial training (the ``ImageBank`` of
+"""Real images for adversarial training and CelebAMask-HQ's labelled test
+pairs (the ``ImageBank`` and ``CelebAMaskHQ`` of
 where2edit_tpu/train/datasets.py, copied: the port imports nothing of the
 JAX package). Host-side numpy; the trainer moves each batch to its device."""
 
@@ -77,3 +78,36 @@ class ImageBank:
     def sample(self, rng: np.random.Generator, batch: int) -> np.ndarray:
         idx = rng.integers(0, len(self), size=batch)
         return np.stack([self._load_one(int(i)) for i in idx])
+
+
+class CelebAMaskHQ:
+    """CelebAMask-HQ test pairs ``{i}.jpg`` (under ``img_path``) and
+    ``{i}.png`` (under ``label_path``), one per file of ``img_path``;
+    ``load(i, img_size, label_size)`` reads one as arrays (Pillow is
+    imported there)."""
+
+    def __init__(self, img_path: str, label_path: str):
+        self.pairs = []
+        if not os.path.isdir(img_path):
+            return
+        n = len([f for f in os.listdir(img_path)
+                 if os.path.isfile(os.path.join(img_path, f))])
+        for i in range(n):
+            self.pairs.append((os.path.join(img_path, f"{i}.jpg"),
+                               os.path.join(label_path, f"{i}.png")))
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def load(self, i: int, img_size: int = 256, label_size: Optional[int] = None):
+        """(image (img_size, img_size, 3) float32 in [-1, 1], label int64
+        resized NEAREST to ``label_size`` when given)."""
+        from PIL import Image  # noqa: PLC0415
+
+        img_p, lbl_p = self.pairs[i]
+        img = Image.open(img_p).convert("RGB").resize((img_size, img_size))
+        img_arr = np.asarray(img, np.float32) / 127.5 - 1.0
+        lbl = Image.open(lbl_p)
+        if label_size:
+            lbl = lbl.resize((label_size, label_size), Image.NEAREST)
+        return img_arr, np.asarray(lbl).astype(np.int64)
