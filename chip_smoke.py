@@ -163,7 +163,32 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    InceptionV3: the programs' launches as phase 8, the FID pass's (two
    EMA syntheses), a finite printed and logged ``eval/fid``, the FID
    pass's ms.
-16. the ``kernels`` summary line, then the last line
+16a. styleclip_train — ``cli/mapper_train.main`` at 1024²: ``LevelsMapper``,
+   batch 2, test batch 1, Ranger at lr 0.5, λ_id 0.1 (the seeded ArcFace
+   IR-SE50 of ``tests/torch_parity.py`` from a file), λ_clip 1.0 (ViT-B/32
+   with seeded random weights), λ_l2 0.8; 7 steps (``--max_steps 6``) over
+   16 self-sampled latents, 8 test latents (the defaults' 5000 and 1000 cut
+   for the run's time); a ``CoachProbe`` span: every stage fenced, K1 and K3
+   launches per stage against ``styleclip_launches`` (forward: a decode and
+   an edit synthesis; backward: K1's input gradient), K1's weights prepared
+   once (the first synthesis) and never again, no gradient in a frozen model, one in every mapper
+   parameter; finite losses at every step; the checkpoints; the p50 step
+   and its stage split over steps 1-6, samples/s, peak memory, the latent
+   sampling's and each validation's ms.
+16b. styleclip_stylespace — the same with ``--work_in_stylespace
+   --mapper_type WithoutToRGBStyleSpaceMapper``, 3 steps:
+   ``Generator.stylespace`` and the S-space decode.
+16c. styleclip_inference — ``cli/mapper_inference.main`` on 16a's
+   ``best_model.pt``, 8 of its test latents, test batch 2,
+   ``--couple_outputs``: launches (two syntheses per batch) held exactly,
+   ms per batch from ``stats.txt``, the saved latents against
+   ``w + 0.1·mapper(w)`` from the checkpoint's weights.
+16d. styleclip_whole — one coach step at 64², batch 2, card against CPU
+   from the same weights and W+, for ``LevelsMapper`` and
+   ``FullStyleSpaceMapper``: loss terms, the mapper's gradient (phase 10's
+   bars), under ``cudnn.deterministic``; 7 Ranger steps from the same
+   parameters and gradients (``RANGER_REL_TOL``).
+17. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -173,6 +198,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import glob
 import importlib.util
 import io
@@ -197,7 +223,7 @@ import torch
 import torch.nn.functional as F
 
 from where2edit_tpu_torch.cli import edit as edit_cli
-from where2edit_tpu_torch.cli import evaluate
+from where2edit_tpu_torch.cli import evaluate, mapper_inference, mapper_train
 from where2edit_tpu_torch.cli import run_attention, run_clustering, train_stylegan
 from where2edit_tpu_torch.cli.common import (
     build_generator,
@@ -224,19 +250,22 @@ from where2edit_tpu_torch.editing.attention_mappers import (
     tap_resolution,
 )
 from where2edit_tpu_torch.editing.clustering import _lloyd, kmeans_fit
+from where2edit_tpu_torch.editing.latent_mappers import stylespace_count
+from where2edit_tpu_torch.editing.styleclip_mapper import build_mapper
 from where2edit_tpu_torch.eval.metrics import EditEvaluator
 from where2edit_tpu_torch.kernels import common
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
 from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
+from where2edit_tpu_torch.losses.id_loss import IDLoss
 from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
 from where2edit_tpu_torch.models.clip_model import CLIP
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.encoders import Encoder4Editing
 from where2edit_tpu_torch.models.inception import InceptionV3
 from where2edit_tpu_torch.models.irse import Backbone
-from where2edit_tpu_torch.models.psp import PSp
+from where2edit_tpu_torch.models.psp import PSp, get_keys
 from where2edit_tpu_torch.models.stylegan2 import Generator, channel_table
 from where2edit_tpu_torch.models.vgg import Vgg16
 from where2edit_tpu_torch.nn.layers import EqualLinear
@@ -247,9 +276,11 @@ from where2edit_tpu_torch.train.attention_trainer import (
     Draws,
     is_attention_param,
 )
+from where2edit_tpu_torch.train.coach import Coach, CoachConfig
 from where2edit_tpu_torch.train.corpus import ATTENTION_PROMPTS, IOU_PROMPTS
 from where2edit_tpu_torch.train.gan_trainer import Draws as GANDraws
 from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
+from where2edit_tpu_torch.train.ranger import Ranger
 from where2edit_tpu_torch.utils.logging import read_scalars
 
 # the seeded InceptionV3 and ArcFace state dicts the CPU tests draw too
@@ -2666,6 +2697,327 @@ def phase_train_fid(card: str, work: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 16a-16d: the StyleCLIP latent mappers (cli/mapper_train.py,
+# cli/mapper_inference.py)
+# ---------------------------------------------------------------------------
+
+STYLECLIP_STEPS, STYLESPACE_STEPS = 6, 2     # max_steps: steps 0-6 and 0-2
+STYLECLIP_BATCH, STYLECLIP_TEST = 2, 8
+STYLECLIP_STAGES = ("decode", "mapper", "edit", "id", "clip", "backward", "optim")
+INFERENCE_LATENTS, INFERENCE_BATCH = 8, 2
+# the Ranger update card against CPU from the same parameters and gradients,
+# max |Δ| / max |CPU|: a few fp32 elementwise ops per step, 7 steps
+RANGER_REL_TOL = 1e-5
+
+
+def styleclip_args() -> list:
+    """The trainer's flags at ``SIZE``: the defaults but for the 5000 and
+    1000 latents, cut to 16 and 8 for the run's time; every step's losses
+    logged."""
+    return ["--stylegan_size", str(SIZE), "--description", "a person with purple hair",
+            "--batch_size", str(STYLECLIP_BATCH), "--test_batch_size", "1",
+            "--train_dataset_size", "16", "--test_dataset_size", str(STYLECLIP_TEST),
+            "--board_interval", "1"]
+
+
+def styleclip_launches(n_oct: int, val_batches: int) -> dict:
+    """{stage: (K1, K2, K3) launches} of one StyleCLIP coach step at a size
+    with ``n_oct`` octaves above 4² (L = n_oct + 1 layers per kernel: the
+    generator's conv1 and one 3x3 conv per octave for K1, its ToRGBs for
+    K3): decode and edit one synthesis each; backward K1's input gradient
+    at every 3x3 conv but conv1 (its input is the frozen constant), K3's
+    backward plain; the mapper, ArcFace, CLIP and the optimizer none (cuDNN
+    and cuBLAS); a validation two syntheses per test batch; the latent
+    sampling none (the mapping network only)."""
+    lay = n_oct + 1
+    table = {stage: (0, 0, 0) for stage in STYLECLIP_STAGES + ("sample",)}
+    table.update({"decode": (lay, 0, lay), "edit": (lay, 0, lay),
+                  "backward": (n_oct, 0, 0),
+                  "validate": (2 * lay * val_batches, 0, 2 * lay * val_batches)})
+    return table
+
+
+class CoachProbe:
+    """The ``span`` of ``cli/mapper_train.main``: fences each stage with
+    ``torch.cuda.synchronize``, times it and reads the launch and K1
+    preparation counters around it; checks after each backward that no
+    generator, CLIP or ArcFace parameter has a gradient and every mapper
+    parameter has one."""
+
+    def __init__(self):
+        self.records = []          # (step, stage, ms, (K1, K2, K3), prepares)
+        self.coach = None
+
+    @contextlib.contextmanager
+    def __call__(self, stage, coach):
+        self.coach = coach
+        sync()
+        before, prep, t0 = counts(), k1.prepares, time.perf_counter()
+        yield
+        sync()
+        self.records.append((coach.global_step, stage, (time.perf_counter() - t0) * 1e3,
+                             tuple(a - b for a, b in zip(counts(), before)),
+                             k1.prepares - prep))
+        if stage == "backward":
+            frozen = [p for m in (coach.generator, coach.clip_loss.model,
+                                  coach.id_loss.facenet)
+                      for p in m.parameters() if p.grad is not None]
+            check(not frozen, f"step {coach.global_step}: {len(frozen)} frozen "
+                              "parameters have a gradient")
+            missing = [n for n, p in coach.mapper.named_parameters() if p.grad is None]
+            check(not missing, f"step {coach.global_step}: no gradient for {missing[:5]}")
+
+
+def run_styleclip(card: str, work: str, name: str, flags: list, max_steps: int) -> tuple:
+    """``cli/mapper_train.main`` at full width with ``flags``, seeded random
+    ViT-B/32 and the seeded ArcFace IR-SE50 file, with a ``CoachProbe``:
+    finite losses at every step, launches per stage against
+    ``styleclip_launches``, K1's weights prepared at the first synthesis
+    only.
+    Emits the phase's line; returns ({kernel: launches}, {kernel: launches
+    in backward passes}, the coach, its exp_dir)."""
+    files = evaluation_weights(work)
+    probe = CoachProbe()
+    exp_dir = os.path.join(work, name)
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    k1.launches = k2.launches = k3.launches = 0
+    coach = mapper_train.main([*styleclip_args(), *flags, "--max_steps", str(max_steps),
+                               "--ir_se50_weights", files["arcface"], "--device", DEV,
+                               "--exp_dir", exp_dir], span=probe)
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
+    check(coach.global_step == max_steps and coach.cfg.id_lambda > 0
+          and coach.cfg.clip_lambda > 0, "the coach ran every step with both losses")
+    rows = [r for r in read_scalars(coach.log_dir) if r["tag"] == "train/loss"]
+    check(len(rows) == max_steps + 1 and all(math.isfinite(r["value"]) for r in rows),
+          f"logged train losses {rows}")
+    n_oct = coach.generator.log_size - 2
+    val_ms, stage_ms, step_ms = [], defaultdict(list), defaultdict(float)
+    n_val = STYLECLIP_TEST // coach.cfg.test_batch_size
+    backward = (0, 0, 0)
+    for step, stage, ms, got, prep in probe.records:
+        batches = min(5, n_val) if step == 0 else n_val
+        want = styleclip_launches(n_oct, batches)[stage]
+        check(got == want, f"{name} step {step} {stage}: launches {got}, expected {want}")
+        # the generator's first synthesis prepares K1's weights, once
+        first = step == 0 and stage == "decode"
+        check(prep == (n_oct + 1 if first else 0),
+              f"{name} step {step} {stage}: {prep} K1 weight preparations")
+        if stage == "validate":
+            val_ms.append(ms)
+        elif stage == "backward":
+            backward = total(backward, got)
+        if stage in STYLECLIP_STAGES and step >= 1:
+            stage_ms[stage].append(ms)
+            step_ms[step] += ms
+    steps = [s for s, stage, *_ in probe.records if stage == "optim"]
+    check(steps == list(range(max_steps + 1)), f"{name}: steps {steps}")
+    per_step = [step_ms[s] for s in sorted(step_ms)]
+    expect = styleclip_launches(n_oct, 0)
+    fwd = total(expect["decode"], expect["edit"])
+    ckpts = sorted(os.listdir(os.path.join(exp_dir, "checkpoints")))
+    want_ckpts = sorted(["best_model.pt", "iteration_0.pt", f"iteration_{max_steps}.pt",
+                         "timestamp.txt"])
+    check(ckpts == want_ckpts, f"{name}: checkpoints {ckpts}")
+    val_loss = coach.best_val_loss
+    check(val_loss is not None and math.isfinite(val_loss), f"{name}: validation {val_loss}")
+    check(peak <= 80e9, f"{name}: peak {peak / 2 ** 30:.2f} GiB")
+    emit({"phase": name, "card": card, "size": SIZE, "batch": STYLECLIP_BATCH,
+          "steps": max_steps + 1, "mapper": type(coach.mapper).__name__,
+          "work_in_stylespace": coach.cfg.work_in_stylespace,
+          "train_losses": [r["value"] for r in rows], "best_val_loss": val_loss,
+          "launches": launches,
+          "launches_per_step_forward": dict(zip(("K1", "K2", "K3"), fwd)),
+          "launches_per_step_backward": dict(zip(("K1", "K2", "K3"), expect["backward"])),
+          "step_ms": per_step, "p50_step_ms": statistics.median(per_step),
+          "stage_ms_p50": {k: statistics.median(v) for k, v in stage_ms.items()},
+          "samples_per_s": STYLECLIP_BATCH * len(per_step) / (sum(per_step) / 1e3),
+          "sample_latents_ms": [ms for _, st, ms, _, _ in probe.records if st == "sample"],
+          "validate_ms": val_ms, "peak_mem_gib": peak / 2 ** 30, "checkpoints": ckpts,
+          "note": f"steps 1-{max_steps} (step 0 builds cuDNN plans), each stage "
+                  "fenced by torch.cuda.synchronize; a step's ms is the sum of its "
+                  "stages; validation at step 0 (the 5-batch sanity pass) and at "
+                  "the last step"})
+    return launches, dict(zip(launches, backward)), coach, exp_dir
+
+
+def phase_styleclip_train(card: str, work: str) -> tuple:
+    """16a: ``LevelsMapper`` in W+, batch 2, 7 steps (0-6)."""
+    return run_styleclip(card, work, "styleclip_train", [], STYLECLIP_STEPS)
+
+
+def phase_styleclip_stylespace(card: str, work: str) -> dict:
+    """16b: ``--work_in_stylespace --mapper_type WithoutToRGBStyleSpaceMapper``,
+    3 steps (0-2): ``Generator.stylespace`` and the S-space decode."""
+    launches, _, coach, _ = run_styleclip(
+        card, work, "styleclip_stylespace",
+        ["--work_in_stylespace", "--mapper_type", "WithoutToRGBStyleSpaceMapper"],
+        STYLESPACE_STEPS)
+    check(coach.cfg.work_in_stylespace and type(coach.mapper).__name__
+          == "WithoutToRGBStyleSpaceMapper", "the S-space mapper trained")
+    return launches
+
+
+def phase_styleclip_inference(card: str, work: str, coach, exp_dir: str) -> dict:
+    """16c: ``cli/mapper_inference.main`` on 16a's ``best_model.pt``, 8 of
+    its test latents, test batch 2, ``--couple_outputs``: ms per batch from
+    ``stats.txt``, launches (two syntheses per batch) held exactly, the saved
+    latents against ``w + 0.1·mapper(w)`` from the checkpoint's weights."""
+    ckpt = os.path.join(exp_dir, "checkpoints", "best_model.pt")
+    lat_path = os.path.join(work, "styleclip_latents.pt")
+    w = coach.test_latents[:INFERENCE_LATENTS].cpu()
+    torch.save(w, lat_path)
+    out_dir = os.path.join(work, "styleclip_inference")
+    k1.launches = k2.launches = k3.launches = 0
+    results = mapper_inference.main(["--exp_dir", out_dir, "--checkpoint_path", ckpt,
+                                     "--latents_test_path", lat_path, "--couple_outputs",
+                                     "--test_batch_size", str(INFERENCE_BATCH),
+                                     "--device", DEV])
+    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
+                "modconv1x1": k3.launches}
+    n_batches = INFERENCE_LATENTS // INFERENCE_BATCH
+    per_pass = coach.generator.log_size - 1
+    want = {"modconv3x3": 2 * per_pass * n_batches, "conv3x3": 0,
+            "modconv1x1": 2 * per_pass * n_batches}
+    check(launches == want, f"inference launches {launches}, expected {want}")
+    saved = torch.cat([torch.from_numpy(np.load(os.path.join(results, f"latents_{i:05d}.npy")))
+                       for i in range(0, INFERENCE_LATENTS, INFERENCE_BATCH)])
+    sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+    mapper = build_mapper(sd["opts"]["mapper_type"], **sd["opts"]).to(DEV).eval()
+    mapper.load_state_dict(get_keys(sd, "mapper"))
+    with torch.no_grad():
+        want_w = torch.cat([(x + 0.1 * mapper(x)).cpu() for x in
+                            w.to(DEV).split(INFERENCE_BATCH)])
+    err = rel_err(saved, want_w)[1]
+    check(err <= 1e-6, f"saved latents vs w + 0.1·mapper(w): rel {err}")
+    check(len(glob.glob(os.path.join(results, "*.jpg"))) in (0, INFERENCE_LATENTS),
+          "one image per latent (none without Pillow)")
+    with open(os.path.join(results, "stats.txt")) as f:
+        stats = f.read()
+    mean_s, std_s = (float(v) for v in stats.split()[1].split("+-"))
+    emit({"phase": "styleclip_inference", "card": card, "size": SIZE,
+          "latents": INFERENCE_LATENTS, "batch": INFERENCE_BATCH, "couple_outputs": True,
+          "launches": launches,
+          "launches_per_batch": {k: v // n_batches for k, v in launches.items()},
+          "ms_per_batch": mean_s * 1e3, "ms_per_batch_std": std_s * 1e3,
+          "latents_rel_err": err,
+          "images": len(glob.glob(os.path.join(results, "*.jpg"))),
+          "note": "ms_per_batch: stats.txt's mean over batches 2-4 (an edit and "
+                  "the original, each a synthesis at batch 2, torch.cuda.synchronize "
+                  "before each reading), without the JPEG writes"})
+    return launches
+
+
+def styleclip_parts(size: int, mapper_type: str) -> tuple:
+    """(generator with non-zero noise gains, mapper, CLIP ViT-B/32, ArcFace)
+    at ``size`` on the CPU, seeded."""
+    rng = torch.Generator().manual_seed(31)
+    gen = Generator(size, rng=rng)
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith("noise.weight"):
+                p.copy_(0.1 * torch.randn(1, generator=rng))
+    mapper = build_mapper(mapper_type, n_styles=stylespace_count(size), rng=rng)
+    with torch.no_grad():  # biases at 0.3 once lr_mul 0.01 scales them
+        for name, p in mapper.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(30 * torch.randn(p.shape, generator=rng))
+    clip = CLIP(rng=torch.Generator().manual_seed(32))
+    facenet = Backbone.from_state_dict(arcface_state(seed=0), drop_ratio=0.6)
+    return gen.eval(), mapper, clip.eval(), facenet.eval()
+
+
+def styleclip_whole(mapper_type: str, work: str) -> dict:
+    """One coach step at 64², batch 2, from the same weights and W+ on the
+    CPU and on the card: the loss terms (``TRAIN_LOSS_REL_TOL``), the
+    mapper's gradient (``TRAIN_*_GRAD_TOL``); then 7 Ranger steps on each
+    device from the pre-step parameters with the CPU's gradient
+    (``RANGER_REL_TOL``)."""
+    size = 64
+    stylespace = "StyleSpace" in mapper_type
+    parts = styleclip_parts(size, mapper_type)
+    start = {n: p.detach().clone() for n, p in parts[1].named_parameters()}
+    g = torch.Generator().manual_seed(33)
+    w = torch.randn(STYLECLIP_BATCH, 2 * int(math.log2(size)) - 2, 512, generator=g) * 0.5
+    tokens = torch.from_numpy(np.asarray(tokenize(["a person with purple hair"]))).long()
+    result = {}
+    n = counts()
+    for dev in ("cpu", DEV):
+        gen, mapper, clip, facenet = (copy.deepcopy(m).to(dev) for m in parts)
+        cfg = CoachConfig(exp_dir=os.path.join(work, f"whole_{mapper_type}_{dev}"),
+                          mapper_type=mapper_type, work_in_stylespace=stylespace,
+                          batch_size=STYLECLIP_BATCH, test_batch_size=STYLECLIP_BATCH,
+                          train_dataset_size=STYLECLIP_BATCH,
+                          test_dataset_size=STYLECLIP_BATCH, stylegan_size=size)
+        coach = Coach(cfg, generator=gen, mapper=mapper, clip_loss=CLIPLoss(clip, size),
+                      id_loss=IDLoss(facenet), latent_avg=torch.zeros(1, 512, device=dev),
+                      text_tokens=tokens.to(dev), train_latents=w, test_latents=w)
+        coach.metrics.close()
+        aux, _ = coach.step(next(coach._batches(coach.train_latents, STYLECLIP_BATCH,
+                                                False)))
+        result[dev] = ({k: float(v) for k, v in aux.items()},
+                       {name: p.grad.double().cpu() for name, p in mapper.named_parameters()})
+    launched = tuple(a - b for a, b in zip(counts(), n))
+    (loss_c, grad_c), (loss_g, grad_g) = result["cpu"], result[DEV]
+    loss_rel = {k: abs(loss_g[k] - loss_c[k]) / max(abs(loss_c[k]), 1e-30) for k in loss_c}
+    diff2 = ref2 = worst = 0.0
+    worst_name = None
+    for name, gc in grad_c.items():
+        d2, r2 = float((grad_g[name] - gc).square().sum()), float(gc.square().sum())
+        diff2, ref2 = diff2 + d2, ref2 + r2
+        e = math.sqrt(d2 / max(r2, 1e-60)) if d2 > 0 else 0.0
+        if e > worst:
+            worst, worst_name = e, name
+    model_rel = math.sqrt(diff2 / ref2)
+    # the optimizer alone: 7 Ranger steps (across the rectifier's switch and
+    # the Lookahead sync at 6) on each device with the CPU's gradient
+    params = {}
+    for dev in ("cpu", DEV):
+        ps = [torch.nn.Parameter(start[n].clone().to(dev)) for n in grad_c]
+        opt = Ranger(ps, lr=0.5)
+        for _ in range(7):
+            for p, gc in zip(ps, grad_c.values()):
+                p.grad = gc.float().to(dev)
+            opt.step()
+        params[dev] = torch.cat([p.detach().cpu().flatten() for p in ps])
+    ranger_rel = rel_err(params[DEV], params["cpu"])[1]
+    rec = {"size": size, "batch": STYLECLIP_BATCH, "mapper": mapper_type,
+           "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
+           "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
+           "worst_param": worst_name, "ranger_param_rel": ranger_rel,
+           "card_launches": launched, "loss_rel_tol": TRAIN_LOSS_REL_TOL,
+           "param_grad_tol": TRAIN_PARAM_GRAD_TOL, "model_grad_tol": TRAIN_MODEL_GRAD_TOL,
+           "ranger_rel_tol": RANGER_REL_TOL}
+    bad = {k: v for k, v in loss_rel.items() if not v <= TRAIN_LOSS_REL_TOL}
+    check(not bad, f"64² {mapper_type} coach step losses: {bad}")
+    check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² {mapper_type} mapper grads: rel {model_rel}")
+    check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {mapper_type} {worst_name}: rel {worst}")
+    check(ranger_rel <= RANGER_REL_TOL, f"Ranger card vs CPU: rel {ranger_rel}")
+    if DEV == "cuda":
+        check(launched[0] > 0 and launched[2] > 0, "the card's step ran on K1 and K3")
+    return rec
+
+
+def phase_styleclip_whole(card: str, work: str) -> None:
+    """16d: card against CPU at 64² for ``LevelsMapper`` (W+) and
+    ``FullStyleSpaceMapper`` (S-space), under ``cudnn.deterministic``:
+    without it the card's W+ gradient moves by ~3e-4 run to run (cuDNN's
+    atomic sums, then leaky-ReLU pre-activations near 0 at 4²-8² taking
+    the other slope), and its distance to the CPU's with it."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [styleclip_whole(m, work) for m in ("LevelsMapper", "FullStyleSpaceMapper")]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    emit({"phase": "styleclip_whole", "card": card, "cudnn_deterministic": True,
+          "runs": runs})
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2708,6 +3060,14 @@ def main(argv=None) -> None:
                              "evaluate_iou": phase_evaluate_iou(card, work, faces)}
             phase_evaluate_whole(card, work)
             eval_launches["train_fid"] = phase_train_fid(card, work)
+            styleclip_run, styleclip_backward, coach, exp_dir = phase_styleclip_train(
+                card, work)
+            styleclip = {"styleclip_train": styleclip_run,
+                         "styleclip_stylespace": phase_styleclip_stylespace(card, work)}
+            styleclip["styleclip_inference"] = phase_styleclip_inference(
+                card, work, coach, exp_dir)
+            del coach
+            phase_styleclip_whole(card, work)
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -2738,12 +3098,14 @@ def main(argv=None) -> None:
                    "train": train_launches_run[name], "cluster": cluster_launches[name],
                    "attention": attention_run[name], "mapper_load": load_launches[name],
                    "wplus_train": wplus_train_launches[name],
-                   **{path: got[name] for path, got in eval_launches.items()}}
+                   **{path: got[name] for path, got in eval_launches.items()},
+                   **{path: got[name] for path, got in styleclip.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "train_backward_launches": backward_launches[name],
             "attention_backward_launches": attention_backward[name],
+            "styleclip_backward_launches": styleclip_backward[name],
             "max_abs_err": tot["max_abs_err"],
             "max_rel_err": tot["max_rel_err"],
             "train_forward_max_rel_err": train_fwd_err[name],
@@ -2780,8 +3142,13 @@ def main(argv=None) -> None:
                     "attention_backward_launches inside backward passes, "
                     "the --mapper loads' edits (phase 14a), the W+ "
                     "trainer's 1024² CLI run (phase 14b), cli/evaluate.py's "
-                    "edits and iou runs (phases 15a, 15b) and the trainer's "
-                    "run with --fid_every (phase 15d)"})
+                    "edits and iou runs (phases 15a, 15b), the trainer's "
+                    "run with --fid_every (phase 15d), the StyleCLIP coach's "
+                    "W+ and S-space CLI runs (phases 16a styleclip_train, of "
+                    "which styleclip_backward_launches inside backward "
+                    "passes, and 16b styleclip_stylespace) and "
+                    "cli/mapper_inference.py's run (phase 16c "
+                    "styleclip_inference)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,6 +49,11 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.eval.ssim", "where2edit_tpu_torch.eval.iou",
     "where2edit_tpu_torch.models.inception", "where2edit_tpu_torch.models.state",
     "where2edit_tpu_torch.losses.id_loss", "where2edit_tpu_torch.cli.evaluate",
+    # the StyleCLIP family: latent mappers, Ranger, the coach, its two CLIs
+    "where2edit_tpu_torch.editing.latent_mappers",
+    "where2edit_tpu_torch.editing.styleclip_mapper", "where2edit_tpu_torch.train.ranger",
+    "where2edit_tpu_torch.train.coach", "where2edit_tpu_torch.cli.mapper_train",
+    "where2edit_tpu_torch.cli.mapper_inference",
 }
 
 
@@ -123,3 +128,22 @@ def test_torch_evaluate_needs_a_card_unless_told(tmp_path):
         torch.save({}, tmp_path / "e4e.pt")
         evaluate.main(["iou", *small, "--device", "cpu", "--e4e_ckpt",
                        str(tmp_path / "e4e.pt"), "--img_path", str(tmp_path / "none")])
+
+
+def test_torch_styleclip_clis_need_a_card_unless_told(tmp_path):
+    """``cli/mapper_train.py`` and ``cli/mapper_inference.py`` refuse
+    without a card before any work (no ``exp_dir`` is made, no checkpoint
+    read)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present; the refusal is for GPU-less hosts")
+    from where2edit_tpu_torch.cli import mapper_inference, mapper_train  # noqa: PLC0415
+
+    exp = tmp_path / "exp"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper_train.main(["--exp_dir", str(exp), "--description", "purple hair",
+                           "--stylegan_size", "8"])
+    assert not exp.exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mapper_inference.main(["--exp_dir", str(exp), "--checkpoint_path",
+                               str(tmp_path / "missing.pt"), "--latents_test_path",
+                               str(tmp_path / "missing.pt")])

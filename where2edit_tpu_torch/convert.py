@@ -178,6 +178,31 @@ def feat_mapper_state_dict(variables: dict) -> dict:
     return sd
 
 
+def latent_mapper_state_dict(variables: dict, mapper_type: str, **flags) -> dict:
+    """``{"params"}`` of a ``where2edit_tpu.editing.latent_mappers`` mapper
+    → the reference's keys: each JAX ``Mapper``'s ``fc_{i}`` becomes
+    ``{name}.mapping.{i + 1}`` (``mapping.mapping.*`` for ``SingleMapper``).
+    ``flags``: ``LevelsMapper``'s ``no_*``; a disabled group has no
+    parameters. Raises on a group ``mapper_type`` does not have."""
+    params = variables.get("params", variables)
+    if mapper_type == "SingleMapper":
+        allowed = {"mapping"}
+    elif mapper_type == "LevelsMapper":
+        allowed = {name for name, flag in (("course_mapping", "no_coarse_mapper"),
+                                           ("medium_mapping", "no_medium_mapper"),
+                                           ("fine_mapping", "no_fine_mapper"))
+                   if not flags.get(flag)}
+    else:
+        allowed = {name for name in params if name.startswith("mapper_")}
+    if set(params) - allowed:
+        raise KeyError(f"{mapper_type}: unexpected {sorted(set(params) - allowed)}")
+    sd = {}
+    for name, p in params.items():
+        for i in range(4):
+            sd.update(_equal_linear(p[f"fc_{i}"], f"{name}.mapping.{i + 1}"))
+    return sd
+
+
 def reference_mapper_state_dict(state_dict: dict) -> dict:
     """A reference or DDP-trained mapper checkpoint's state dict, read as
     the JAX loader reads it: the ``module.`` prefix stripped, the dead

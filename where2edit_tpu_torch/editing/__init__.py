@@ -1,5 +1,6 @@
 """Region-attention editing (counterpart of where2edit_tpu/editing): the
-mapper family, k-means regions and the attention-map post-processing."""
+mapper family, k-means regions, the attention-map post-processing and the
+StyleCLIP latent mappers."""
 
 from where2edit_tpu_torch.editing.attention_mappers import (
     FullSpaceMapper,
@@ -22,10 +23,21 @@ from where2edit_tpu_torch.editing.clustering import (
     cluster_features,
     kmeans_fit,
 )
+from where2edit_tpu_torch.editing.latent_mappers import (
+    STYLESPACE_DIMENSIONS,
+    STYLESPACE_INDICES_WITHOUT_TORGB,
+    FullStyleSpaceMapper,
+    LevelsMapper,
+    Mapper,
+    SingleMapper,
+    WithoutToRGBStyleSpaceMapper,
+    stylespace_count,
+)
 from where2edit_tpu_torch.editing.masks import (
     finalize_attention_map,
     straight_through_threshold,
 )
+from where2edit_tpu_torch.editing.styleclip_mapper import StyleCLIPMapper, build_mapper
 
 __all__ = [
     "FullSpaceMapper",
@@ -38,13 +50,23 @@ __all__ = [
     "FullSpaceMapperFEATLin",
     "FullSpaceMapperFEATLinStyle",
     "FullSpaceMapperSpatialLin",
+    "FullStyleSpaceMapper",
+    "LevelsMapper",
+    "Mapper",
     "MapperConLinNet",
     "MapperConNet",
     "MapperNet",
     "MapperOutput",
+    "STYLESPACE_DIMENSIONS",
+    "STYLESPACE_INDICES_WITHOUT_TORGB",
+    "SingleMapper",
+    "StyleCLIPMapper",
+    "WithoutToRGBStyleSpaceMapper",
     "assign_clusters",
+    "build_mapper",
     "cluster_features",
     "kmeans_fit",
     "straight_through_threshold",
     "finalize_attention_map",
+    "stylespace_count",
 ]

@@ -134,6 +134,21 @@ class Generator(nn.Module):
         return torch.where(row[None, :, None] < inject, w1[:, None, :],
                            w2[:, None, :])
 
+    def stylespace(self, w: torch.Tensor) -> list:
+        """W+ (B, n_latent, 512) → the S-space vectors (B, C_i), in the
+        forward pass's order (conv1, to_rgb1, then per octave the up-conv,
+        the conv and the ToRGB), each the layer's ``modulation`` of its W+
+        row: the forward's ``style_vector`` without the synthesis."""
+        styles = [self.conv1.conv.modulation(w[:, 0]),
+                  self.to_rgb1.conv.modulation(w[:, 1])]
+        i = 1
+        for oct_idx, to_rgb in enumerate(self.to_rgbs):
+            styles += [self.convs[2 * oct_idx].conv.modulation(w[:, i]),
+                       self.convs[2 * oct_idx + 1].conv.modulation(w[:, i + 1]),
+                       to_rgb.conv.modulation(w[:, i + 2])]
+            i += 2
+        return styles
+
     def mean_latent(self, n_latent: int, rng: torch.Generator) -> torch.Tensor:
         z = torch.randn(n_latent, self.style_dim, generator=rng,
                         device=self.device)

@@ -50,8 +50,15 @@ def pixel_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
 
 
 class PixelNorm(nn.Module):
+    """``pixel_norm`` over ``dim`` (the features by default; the StyleCLIP
+    mapper's is the reference's ``dim=1``)."""
+
+    def __init__(self, dim: int = -1):
+        super().__init__()
+        self.dim = dim
+
     def forward(self, x):
-        return pixel_norm(x)
+        return pixel_norm(x, self.dim)
 
 
 class EqualLinear(nn.Module):
