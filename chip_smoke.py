@@ -29,6 +29,19 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    printed per shape (``blocks``). K1 is also run and timed with its
    weights prepared once (``prepared=``, as the edit path calls it), which
    must give the same bits as the call that prepares them itself.
+3b. kernels_bf16 — the bf16 forms against their plain twins (the bf16
+   operands upcast, the kernels' roundings, fp32 arithmetic, one rounding):
+   K1-bf16 at the generator's 9 shapes at batch 1, 2 and 8, K2-bf16 at
+   the discriminator's 9 at batch 4 and 8 (final_conv's 513 inputs
+   included), K3-bf16 at the 28 edit-path 1x1 shapes at batch 1 with fp32
+   and with bf16 output, at the 9 ToRGBs at batch 8 and 2 with fp32 output
+   and at the attention trainer's 18 bf16-input mapper convs at batch 8
+   with bf16 output; the kernels line sums the shapes the bf16 trainers
+   launch; max |Δ| / max
+   |twin| <= 8e-3, K1-bf16 prepared against per call bitwise, ms, device
+   ms, the bf16 bound (2 bytes per bf16 value; K1 and K2 at 989 TFLOP/s),
+   the twin's ms and the library's bf16 ms; a device time under 0.95 of
+   its bound fails.
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
    the forward as the trainer runs it (K1 with per-sample noise, bias and
    the activation; K2 with bias and the activation; K3 as ToRGB with bias
@@ -39,6 +52,9 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    shapes at batch 8: K3 at the mapper's 19 attention convs (blending at
    layer 8) with its weight gradient, K1 at 4²-16² on a frozen weight (style
    and demod gradients, no weight gradient).
+4b. backward_bf16 — K1-bf16 and K2-bf16 at the trainer's shapes, batch 8:
+   every input gradient (the input gradient on the bf16 kernel) against
+   autograd through the plain twins, relative L2 <= 1e-2.
 5. slice   — the edit path at full width (1024², 18 W+ rows, 26 taps,
    seeded random weights): one seeded face, three edits and one 2-prompt
    sweep through ``EditSession``, with the launch counters set to 0 just
@@ -188,8 +204,27 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    ``FullStyleSpaceMapper``: loss terms, the mapper's gradient (phase 10's
    bars), under ``cudnn.deterministic``; 7 Ranger steps from the same
    parameters and gradients (``RANGER_REL_TOL``).
-17. the ``kernels`` summary line, then the last line
-   ``{"ok": true, "device": {...}}``.
+17a. train_bf16 — ``cli/train_stylegan.main`` at 1024², batch 8, 5
+   iterations with ``--bf16 --d_bf16 --workers 2 --hflip --sample_every 5
+   --n_sample 4``, warm-started with ``--ckpt`` from a ``g_ema`` file the
+   phase writes: every K1, K2 and K3 launch a bf16 form, launches per
+   program as phase 8, images/s, ms per program, peak memory beside phase
+   8's; the sample grid; then one iteration profiled with shapes
+   (``train_bf16_profile``): kernel time by form, and no cuDNN
+   convolution on a K1 or K2 shape.
+17b. train_levers — 2 iterations at 1024², batch 16, ``--bf16 --remat
+   --d_bf16 --d_remat --d_microbatch 4 --g_microbatch 8``: peak memory, ms
+   per program, and the launches remat's second forwards add.
+17c. attention_bf16, styleclip_bf16 — ``cli/run_attention.main --bf16
+   --remat`` (1024², batch 8, 4 steps, S-space production branch) and
+   ``cli/mapper_train.main --bf16`` (1024², batch 2, 4 steps): ms per step
+   with the fenced stage split, peak memory, every launch a bf16 form.
+17d. bf16_whole — card against CPU at 64² in bf16 under
+   ``cudnn.deterministic``: one GAN iteration, one mapper step, one coach
+   step; loss terms rel <= 1e-2, whole-model gradient rel L2 <= 5e-2, the
+   GAN's image rel <= 1e-2.
+18. the ``kernels`` summary line (K1, K2, K3 and their bf16 forms), then
+   the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 """
@@ -268,7 +303,7 @@ from where2edit_tpu_torch.models.irse import Backbone
 from where2edit_tpu_torch.models.psp import PSp, get_keys
 from where2edit_tpu_torch.models.stylegan2 import Generator, channel_table
 from where2edit_tpu_torch.models.vgg import Vgg16
-from where2edit_tpu_torch.nn.layers import EqualLinear
+from where2edit_tpu_torch.nn.layers import EqualLinear, StyledConv
 from where2edit_tpu_torch.ops.interpolate import adaptive_avg_pool
 from where2edit_tpu_torch.train.attention_trainer import (
     AttentionTrainConfig,
@@ -292,6 +327,7 @@ FP32_FLOP_PER_S = 67e12     # H100 SXM data sheet, fp32 outside tensor cores
 # fp32-accurate products on the tensor cores: three TF32 products each, at
 # the data sheet's dense TF32 rate of 495 TFLOP/s
 TC_3XTF32_FLOP_PER_S = 495e12 / 3
+TC_BF16_FLOP_PER_S = 989e12  # H100 SXM data sheet, dense bf16 tensor cores
 BOUND_FLOOR = 0.95          # a device time under this share of its bound fails
 MAX_EDIT_LAUNCHES = 1441    # kernel launches per 1024² edit, phase 6
 SIZE, ATTENTION_LAYER = 1024, 13
@@ -331,6 +367,21 @@ TRAIN_MODEL_GRAD_TOL = 1e-3
 TRAIN_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier",
               "2", "--batch", "8", "--iter", "5", "--seed", "0",
               "--save_every", "0"]
+# The bf16 forms (phases 3b-17d). A kernel against its plain twin, max |Δ| /
+# max |twin|: both round the same bf16 operands and sum in fp32, in another
+# order, then round once, so a value near a rounding boundary may land one
+# bf16 step apart: 2^-7 of the largest value, under 8e-3. The bf16 input
+# gradient against autograd through the twins, relative L2: the backward's
+# dz is bf16 on both sides, rounded from sums taken in another order. Card
+# against CPU at 64² in bf16: each side rounds activations to bf16 at every
+# layer (cuDNN and the CPU's convs in other orders), so a loss moves by
+# ~1e-3 and the gradient, through a second rounding in the backward, by
+# ~1e-2.
+BF16_KERNEL_REL_TOL = 8e-3
+BF16_BACKWARD_REL_L2 = 1e-2
+BF16_LOSS_REL_TOL = 1e-2
+BF16_MODEL_GRAD_TOL = 5e-2
+BF16_IMAGE_REL_TOL = 1e-2
 
 _out_file = None
 
@@ -652,6 +703,243 @@ def phase_kernels() -> dict:
         add("conv3x3", rec)
         del x, w, got, want, w_lib
     return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the bf16 forms against their plain twins at the main path's shapes
+# ---------------------------------------------------------------------------
+
+BF16_NAMES = {"modconv3x3": "modconv3x3_bf16", "conv3x3": "conv3x3_bf16",
+              "modconv1x1": "modconv1x1_bf16"}
+
+
+def counts_bf16() -> tuple:
+    return k1.launches_bf16, k2.launches_bf16, k3.launches_bf16
+
+
+def phase_kernels_bf16() -> dict:
+    """K1-bf16 at the generator's 9 shapes at batch 1, 2 (the StyleCLIP
+    coach) and 8 (the GAN and attention trainers), K2-bf16 at the
+    discriminator's 9 shapes at batch 4 (17b's D chunks) and 8
+    (final_conv's 513 inputs included), K3-bf16 at the 28 edit-path 1x1
+    shapes at batch 1 with fp32 and with bf16 output, then at the shapes the
+    bf16 trainers launch it: the 9 ToRGBs at batch 8 and 2 with fp32 output,
+    and the attention trainer's mapper convs (``TRAIN_ATTENTION_LAYER``, bar
+    ``attention_first``, whose input is the generator's fp32 constant and
+    takes the fp32 form) at batch 8 with bf16 output: the kernel against its
+    plain twin (``BF16_KERNEL_REL_TOL``), K1 prepared against per call
+    (bitwise), the kernel's, the twin's and the library call's ms (cuDNN
+    ``F.conv2d`` in bf16, channels last, then the epilogue in bf16; for K3
+    the einsum in bf16), the device ms from a CUDA graph and the bf16 bound
+    (2 bytes per bf16 activation and weight, 4 per fp32 operand; K1 and K2
+    at the bf16 tensor cores' 989 TFLOP/s, K3 at the FMA rate). A device
+    time under ``BOUND_FLOOR`` of its bound fails. Returns the totals over
+    the shapes the bf16 trainers (phases 17a-17c) launch: K1 and K2 at batch
+    8, K3 at its trainer shapes above."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(10)
+    bf = torch.bfloat16
+    summed = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms",
+              "bound_ms")
+    totals = {k: {**dict.fromkeys(summed, 0.0), "bytes_s": 0.0, "ops_s": 0.0,
+                  "max_abs_err": 0.0, "max_rel_err": 0.0}
+              for k in BF16_NAMES.values()}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def timed(rec, kernel, plain, library, budget=60.0):
+        rec.update(ms=time_ms(kernel, budget), device_ms=graph_ms(kernel, 10),
+                   plain_ms=time_ms(plain, budget), library_ms=time_ms(library, budget),
+                   library_device_ms=graph_ms(library, 10))
+
+    def add(name, rec, in_total):
+        emit({"phase": "kernels_bf16", "kernel": name, **rec})
+        check(rec["max_rel_err"] <= BF16_KERNEL_REL_TOL,
+              f"{name} {rec['shape']}: rel {rec['max_rel_err']}")
+        for key in ("device_ms", "prepared_device_ms"):
+            check(key not in rec or rec[key] >= BOUND_FLOOR * rec["bound_ms"],
+                  f"{name} {rec['shape']}: {key} {rec.get(key)} ms under "
+                  f"{BOUND_FLOOR} of its bound {rec['bound_ms']} ms")
+        if not in_total:
+            return
+        tot = totals[name]
+        for key in summed:
+            tot[key] += rec[key]
+        tot["bytes_s" if rec["bound_by"] == "bytes" else "ops_s"] += rec["bound_ms"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], rec["max_abs_err"])
+        tot["max_rel_err"] = max(tot["max_rel_err"], rec["max_rel_err"])
+
+    sqrt2 = math.sqrt(2.0)
+    for batch in (1, 2, 8):
+        for res, cin, cout in k1_shapes():
+            x = randn(batch, res, res, cin).to(bf)
+            s, w = randn(batch, cin), randn(3, 3, cin, cout)
+            scale = 1.0 / math.sqrt(cin * 9)
+            demod = torch.rsqrt(s.square() @ (scale * w).square().sum((0, 1)) + 1e-8)
+            style = (scale * s).contiguous()
+            noise, nw, bias = randn(batch, res, res), randn(1), randn(cout)
+            args = (x, style, w, demod, noise, nw, bias, True)
+            got = k1.modconv3x3(*args)
+            want = k1.modconv3x3_plain(*args)
+            wp = k1.prepare_weight(w, dtype=bf)
+            got_prepared = k1.modconv3x3(*args, prepared=wp)
+            torch.cuda.synchronize()
+            check(got.dtype == bf, "K1-bf16 stores bf16")
+            check(torch.equal(got_prepared, got),
+                  f"modconv3x3_bf16 {res}² batch {batch}: prepared weights change the result")
+            abs_err, rel = rel_err(got.float(), want.float())
+            x_lib, s_lib = x.permute(0, 3, 1, 2), style.to(bf)[:, :, None, None]
+            w_lib = w.permute(3, 2, 0, 1).to(bf).contiguous(memory_format=torch.channels_last)
+            d_lib, b_lib = demod.to(bf)[:, :, None, None], bias.to(bf)[None, :, None, None]
+            n_lib = (nw * noise).to(bf)[:, None]
+
+            def library():
+                y = F.conv2d(x_lib * s_lib, w_lib, padding=1)
+                y = y * d_lib + n_lib + b_lib
+                return F.leaky_relu_(y, 0.2).mul_(sqrt2)
+
+            rec = {"shape": f"{res}x{res} {cin}->{cout} batch {batch}",
+                   "max_abs_err": abs_err, "max_rel_err": rel}
+            timed(rec, lambda: k1.modconv3x3(*args), lambda: k1.modconv3x3_plain(*args),
+                  library)
+            rec["prepared_device_ms"] = graph_ms(lambda: k1.modconv3x3(*args, prepared=wp), 10)
+            nbytes = (2 * (x.numel() + w.numel() + got.numel())
+                      + 4 * (style.numel() + demod.numel() + noise.numel() + 1 + bias.numel()))
+            rec["bound_ms"], rec["bound_by"] = bound(
+                nbytes, 2 * batch * res * res * cin * cout * 9, TC_BF16_FLOP_PER_S)
+            add("modconv3x3_bf16", rec, batch == 8)
+            del x, w, wp, got, got_prepared, want, x_lib, w_lib
+
+    for batch, res, cin, cout in [(b, *shape) for b in (4, 8) for shape in k2_shapes()]:
+        x, w, bias = randn(batch, res, res, cin).to(bf), randn(3, 3, cin, cout), randn(cout)
+        scale = 1.0 / math.sqrt(cin * 9)
+        args = (x, w, scale, bias, True)
+        got = k2.conv3x3(*args)
+        want = k2.conv3x3_plain(*args)
+        torch.cuda.synchronize()
+        check(got.dtype == bf, "K2-bf16 stores bf16")
+        abs_err, rel = rel_err(got.float(), want.float())
+        x_lib = x.permute(0, 3, 1, 2)
+        w_lib = (w.permute(3, 2, 0, 1) * scale).to(bf).contiguous(
+            memory_format=torch.channels_last)
+        b_lib = bias.to(bf)
+
+        def library():
+            y = F.conv2d(x_lib, w_lib, b_lib, padding=1)
+            return F.leaky_relu_(y, 0.2).mul_(sqrt2)
+
+        rec = {"shape": f"{res}x{res} {cin}->{cout} batch {batch}",
+               "max_abs_err": abs_err, "max_rel_err": rel}
+        timed(rec, lambda: k2.conv3x3(*args), lambda: k2.conv3x3_plain(*args), library)
+        nbytes = 2 * (x.numel() + w.numel() + got.numel()) + 4 * bias.numel()
+        rec["bound_ms"], rec["bound_by"] = bound(
+            nbytes, 2 * batch * res * res * cin * cout * 9, TC_BF16_FLOP_PER_S)
+        add("conv3x3_bf16", rec, batch == 8)
+        del x, w, got, want, x_lib, w_lib
+
+    def k3_shape(name, res, cin, cout, styled, has_res, batch, out_dtype, in_total):
+        p = res * res
+        x, s, w = randn(batch, p, cin).to(bf), randn(batch, cin), randn(cin, cout)
+        scale = 1.0 / math.sqrt(cin)
+        style = (scale * s).contiguous()
+        demod = (torch.rsqrt(s.square() @ (scale * w).square() + 1e-8) if styled else None)
+        noise, nw = (randn(1, p), randn(1)) if styled else (None, None)
+        bias = randn(cout)
+        residual = randn(batch, p, cout).to(out_dtype) if has_res else None
+        args = (x, style, w, demod, noise, nw, bias, styled, residual)
+        got = k3.modconv1x1(*args, out_dtype=out_dtype)
+        want = k3.modconv1x1_plain(*args, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        check(got.dtype == out_dtype, f"K3-bf16 stores {out_dtype}")
+        abs_err, rel = rel_err(got.float(), want.float())
+        w_lib = (style[:, :, None] * w * (demod[:, None, :] if styled else 1.0)).to(bf)
+        b_lib = bias.to(bf)
+
+        def library():
+            y = torch.einsum("bpi,bio->bpo", x, w_lib)
+            if styled:
+                y = y + (nw * noise[:, :, None]).to(bf) + b_lib
+                y = F.leaky_relu_(y, 0.2).mul_(sqrt2)
+            else:
+                y = y + b_lib
+            y = y.to(out_dtype)
+            return y if residual is None else y.add_(residual)
+
+        rec = {"shape": f"{name} {res}x{res} {cin}->{cout} batch {batch} "
+                        f"out {str(out_dtype).split('.')[-1]}",
+               "max_abs_err": abs_err, "max_rel_err": rel}
+        timed(rec, lambda: k3.modconv1x1(*args, out_dtype=out_dtype),
+              lambda: k3.modconv1x1_plain(*args, out_dtype=out_dtype), library, 30.0)
+        out_bytes = got.element_size() * (got.numel() + (residual.numel() if has_res else 0))
+        nbytes = 2 * x.numel() + out_bytes + 4 * sum(
+            t.numel() for t in (style, w, demod, noise, nw, bias) if t is not None)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * batch * p * cin * cout)
+        add("modconv1x1_bf16", rec, in_total)
+
+    for shape in k3_shapes():  # the edit path's shapes, both outputs
+        for out_dtype in (torch.float32, bf):
+            k3_shape(*shape, 1, out_dtype, False)
+    for batch in (8, STYLECLIP_BATCH):  # the trainers' ToRGBs, fp32 out
+        for shape in k3_shapes()[:9]:
+            k3_shape(*shape, batch, torch.float32, True)
+    for shape in mapper_conv_shapes(TRAIN_ATTENTION_LAYER)[1:]:  # 17c's mapper
+        k3_shape(*shape, True, False, ATTENTION_BATCH, bf, True)
+    return totals
+
+
+def phase_backward_bf16() -> dict:
+    """4b: K1-bf16 and K2-bf16 at the 1024² trainer's shapes, batch 8:
+    every input gradient of the Function (the input gradient the bf16
+    kernel, the rest plain in fp32) against autograd through the plain
+    twins, relative L2 <= ``BF16_BACKWARD_REL_L2``; without the activation
+    (phase 4 says why). Returns {kernel: worst relative L2}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(11)
+    bf = torch.bfloat16
+    batch = 8
+    worst = {"modconv3x3_bf16": 0.0, "conv3x3_bf16": 0.0}
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    def compare(name, shape, kernel_fn, plain_fn, inputs, dy):
+        before = counts_bf16()
+        got = _grads(kernel_fn, inputs, dy)
+        launched = tuple(a - b for a, b in zip(counts_bf16(), before))
+        want = _grads(plain_fn, inputs, dy)
+        torch.cuda.synchronize()
+        errs = {k: float((got[k].float() - want[k].float()).norm()
+                         / max(float(want[k].float().norm()), 1e-30)) for k in got}
+        worst[name] = max(worst[name], *errs.values())
+        emit({"phase": "backward_bf16", "kernel": name, "shape": shape,
+              "bf16_launches": launched, "rel_l2": errs, "tol": BF16_BACKWARD_REL_L2,
+              "dtypes": {k: str(v.dtype) for k, v in got.items()}})
+        check(got["x"].dtype == bf, f"{name} {shape}: dx is {got['x'].dtype}")
+        bad = {k: e for k, e in errs.items() if not e <= BF16_BACKWARD_REL_L2}
+        check(not bad, f"{name} backward {shape}: {bad}")
+        return launched
+
+    for res, cin, cout in k1_shapes():
+        scale = 1.0 / math.sqrt(cin * 9)
+        inputs = {"x": randn(batch, res, res, cin).to(bf), "style": scale * randn(batch, cin),
+                  "w": randn(3, 3, cin, cout), "demod": randn(batch, cout).abs() + 0.5,
+                  "noise": randn(batch, res, res), "noise_weight": randn(1),
+                  "bias": randn(cout), "act": False}
+        launched = compare("modconv3x3_bf16", f"{res}x{res} {cin}->{cout}", k1.modconv3x3,
+                           k1.modconv3x3_plain, inputs,
+                           randn(batch, res, res, cout).to(bf))
+        check(launched == (2, 0, 0), f"K1-bf16 {res}²: bf16 launches {launched}")
+        del inputs
+    for res, cin, cout in k2_shapes():
+        inputs = {"x": randn(batch, res, res, cin).to(bf), "w": randn(3, 3, cin, cout),
+                  "scale": 1.0 / math.sqrt(cin * 9), "bias": randn(cout), "act": False}
+        launched = compare("conv3x3_bf16", f"{res}x{res} {cin}->{cout}", k2.conv3x3,
+                           k2.conv3x3_plain, inputs,
+                           randn(batch, res, res, cout).to(bf))
+        check(launched == (0, 2, 0), f"K2-bf16 {res}²: bf16 launches {launched}")
+        del inputs
+    return worst
 
 
 # ---------------------------------------------------------------------------
@@ -1590,6 +1878,7 @@ class TrainProbe:
 
     def __init__(self):
         self.records = []          # (step, program, ms, (K1, K2, K3))
+        self.bf16 = []             # (K1, K2, K3) of the bf16 forms, per record
         self.losses = []           # per iteration {name: float}
         self.start = None
 
@@ -1599,13 +1888,14 @@ class TrainProbe:
             self.start = {m: [p.detach().clone() for p in getattr(trainer, m).parameters()]
                           for m in ("g", "d")}
         torch.cuda.synchronize()
-        before, t0 = counts(), time.perf_counter()
+        before, before_bf16, t0 = counts(), counts_bf16(), time.perf_counter()
         yield
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         after = counts()
         self.records.append((trainer.global_step, program, ms,
                              tuple(a - b for a, b in zip(after, before))))
+        self.bf16.append(tuple(a - b for a, b in zip(counts_bf16(), before_bf16)))
         if program == "g":
             zero = [n for n, p in trainer.g.named_parameters()
                     if p.grad is None or not bool(p.grad.abs().max() > 0)]
@@ -1619,7 +1909,7 @@ class TrainProbe:
 
 def phase_train(card: str) -> tuple:
     """Returns ({kernel: launches}, {kernel: launches inside backward
-    passes}) of the training run."""
+    passes}, the trainer, the peak memory in GiB) of the training run."""
     probe = TrainProbe()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1661,7 +1951,7 @@ def phase_train(card: str) -> tuple:
           "images_per_s_without_regularizers":
               batch * len(plain_iters) / (sum(plain_iters) / 1e3),
           "losses": probe.losses, "peak_mem_gib": peak / 2 ** 30})
-    return launches, dict(zip(launches, backward)), trainer
+    return launches, dict(zip(launches, backward)), trainer, peak / 2 ** 30
 
 
 def phase_train_profile(trainer, card: str) -> None:
@@ -1689,9 +1979,20 @@ def phase_train_profile(trainer, card: str) -> None:
 # ---------------------------------------------------------------------------
 
 def phase_train_whole() -> None:
+    emit(train_whole())
+
+
+def train_whole(bf16: bool = False) -> dict:
+    """One training iteration at 64², card against CPU, each program from
+    the same state; with ``bf16`` the generator and the discriminator in
+    bf16 (``--bf16 --d_bf16``) at the bf16 bars, and the fake image of the
+    iteration's draws beside them. Returns the record."""
     size, batch = 64, 4
-    cfg = GANTrainConfig(size=size, batch_size=batch, channel_multiplier=2)
-    cpu, gpu = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device="cuda")
+    cfg = GANTrainConfig(size=size, batch_size=batch, channel_multiplier=2,
+                         bf16=bf16, d_bf16=bf16)
+    cpu, gpu = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device=DEV)
+    loss_tol, model_tol = ((BF16_LOSS_REL_TOL, BF16_MODEL_GRAD_TOL) if bf16
+                           else (TRAIN_LOSS_REL_TOL, TRAIN_MODEL_GRAD_TOL))
     real = torch.from_numpy(np.random.default_rng(0).uniform(
         -1.0, 1.0, (batch, size, size, 3)).astype(np.float32))
     draws = cpu.draw(batch)
@@ -1699,8 +2000,8 @@ def phase_train_whole() -> None:
     pl_noise = torch.randn(cpu.path_batch(), size, size, 3, generator=cpu.rng)
 
     def to_gpu(d: GANDraws) -> GANDraws:
-        return GANDraws(d.z1.cuda(), d.z2.cuda(), d.inject.cuda(),
-                        [n.cuda() for n in d.noise])
+        return GANDraws(d.z1.to(DEV), d.z2.to(DEV), d.inject.to(DEV),
+                        [n.to(DEV) for n in d.noise])
 
     # non-zero noise gains (they start at 0), so each layer's per-sample
     # noise reaches the images and the losses
@@ -1717,15 +2018,15 @@ def phase_train_whole() -> None:
             path_draws if dev == "cpu" else to_gpu(path_draws), pl_noise.to(dev))[0]),
     ]
     n = counts()
-    rec = {"phase": "train_whole", "size": size, "batch": batch,
-           "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
-           "model_grad_tol": TRAIN_MODEL_GRAD_TOL}
+    rec = {"phase": "train_whole", "size": size, "batch": batch, "bf16": bf16,
+           "loss_rel_tol": loss_tol, "model_grad_tol": model_tol,
+           **({} if bf16 else {"param_grad_tol": TRAIN_PARAM_GRAD_TOL})}
     for program, model, run in programs:
         # each program from the same state on both sides
         for m in ("g", "d"):
             getattr(gpu, m).load_state_dict(getattr(cpu, m).state_dict())
-        gpu.pl_mean = cpu.pl_mean.cuda()
-        loss_c, loss_g = float(run(cpu, "cpu")), float(run(gpu, "cuda"))
+        gpu.pl_mean = cpu.pl_mean.to(DEV)
+        loss_c, loss_g = float(run(cpu, "cpu")), float(run(gpu, DEV))
         loss_rel = abs(loss_g - loss_c) / max(abs(loss_c), 1e-30)
         diff2 = ref2 = 0.0
         worst, worst_name = 0.0, None
@@ -1745,16 +2046,27 @@ def phase_train_whole() -> None:
         rec[program] = {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": loss_rel,
                         "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
                         "worst_param": worst_name}
-        check(loss_rel <= TRAIN_LOSS_REL_TOL, f"64² {program} loss: rel {loss_rel}")
-        check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² {program} grads: rel {model_rel}")
-        check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {program} {worst_name}: rel {worst}")
+        check(loss_rel <= loss_tol, f"64² {program} loss: rel {loss_rel}")
+        check(model_rel <= model_tol, f"64² {program} grads: rel {model_rel}")
+        if not bf16:  # bf16 roundings make single tensors noisier; the model's bar holds
+            check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {program} {worst_name}: rel {worst}")
     want = (0, 0, 0)
     for fwd, bwd in train_launches(int(math.log2(size)) - 2).values():
         want = total(want, total(fwd, bwd))
     got = tuple(a - b for a, b in zip(counts(), n))
     rec["launches"] = got
-    emit(rec)
     check(got == want, f"64² card programs launched {got}, expected {want}")
+    if bf16:
+        gpu.g.load_state_dict(cpu.g.state_dict())
+        with torch.no_grad():
+            img_c = cpu.synthesize(draws)[0]
+            img_g = gpu.synthesize(to_gpu(draws))[0].cpu()
+        rec["image_dtype"] = str(img_g.dtype)
+        rec["image_rel"] = rel_err(img_g, img_c)[1]
+        rec["image_rel_tol"] = BF16_IMAGE_REL_TOL
+        check(img_g.dtype == torch.float32, "a bf16 generator returns an fp32 image")
+        check(rec["image_rel"] <= BF16_IMAGE_REL_TOL, f"64² bf16 image: rel {rec['image_rel']}")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -2031,7 +2343,7 @@ def phase_attention_profile(trainer, card: str) -> None:
 
 
 def attention_parts(size: int, device: str, seed: int = 0,
-                    wplus: bool = False) -> tuple:
+                    wplus: bool = False, dtype=torch.float32) -> tuple:
     """(generator, mapper, CLIP loss, perceptual loss) at ``size`` with
     seeded random weights, full-width CLIP ViT-B/32 and VGG16; the S-space
     production mapper, or with ``wplus`` the W+ one. The mapper's centres
@@ -2039,7 +2351,7 @@ def attention_parts(size: int, device: str, seed: int = 0,
     by geometry alone and the card and the CPU cannot split a near-tie two
     ways."""
     rng = torch.Generator().manual_seed(seed)
-    gen = Generator(size, rng=rng)
+    gen = Generator(size, rng=rng, dtype=dtype)
     with torch.no_grad():  # non-zero noise gains, so the noise path counts
         for name, p in gen.named_parameters():
             if name.endswith("noise.weight"):
@@ -2058,20 +2370,24 @@ def attention_parts(size: int, device: str, seed: int = 0,
     return gen, mapper, CLIPLoss(clip, size), PerceptualLoss(vgg, size)
 
 
-def attention_whole(wplus: bool = False) -> dict:
+def attention_whole(wplus: bool = False, bf16: bool = False) -> dict:
     """One training step at 64² on the card and on the CPU from the same
     weights and draws, every mapper gradient unmasked
     (``freeze_attention_until`` 0), in S-space or (``wplus``) in W+: each
     loss term within ``TRAIN_LOSS_REL_TOL``, the mapper's gradient within
     ``TRAIN_MODEL_GRAD_TOL`` (whole model) and ``TRAIN_PARAM_GRAD_TOL`` (per
-    tensor). Returns the record."""
+    tensor); with ``bf16`` a bf16 generator, at the bf16 bars. Returns the
+    record."""
     size, batch, step_idx = 64, 4, 60
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    loss_tol, model_tol = ((BF16_LOSS_REL_TOL, BF16_MODEL_GRAD_TOL) if bf16
+                           else (TRAIN_LOSS_REL_TOL, TRAIN_MODEL_GRAD_TOL))
     cfg = AttentionTrainConfig(stylegan_size=size, attention_layer=TRAIN_ATTENTION_LAYER,
                                cluster_layer=CLUSTER_LAYER, batch_size=batch,
                                step=300, work_in_stylespace=not wplus,
                                freeze_attention_until=0.0)
-    cpu_parts = attention_parts(size, "cpu", wplus=wplus)
-    gpu_parts = attention_parts(size, DEV, wplus=wplus)
+    cpu_parts = attention_parts(size, "cpu", wplus=wplus, dtype=dtype)
+    gpu_parts = attention_parts(size, DEV, wplus=wplus, dtype=dtype)
     g = torch.Generator().manual_seed(5)
     draws = Draws(torch.randn(batch, 512, generator=g), torch.randn(batch, 512, generator=g),
                   torch.randint(0, 7, (batch,), generator=g))
@@ -2106,14 +2422,15 @@ def attention_whole(wplus: bool = False) -> dict:
            "mapper": type(gpu_parts[1]).__name__,
            "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
            "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
-           "worst_param": worst_name, "card_launches": launches,
-           "loss_rel_tol": TRAIN_LOSS_REL_TOL, "param_grad_tol": TRAIN_PARAM_GRAD_TOL,
-           "model_grad_tol": TRAIN_MODEL_GRAD_TOL}
-    what = "W+ attention" if wplus else "attention"
-    bad = {k: v for k, v in loss_rel.items() if not v <= TRAIN_LOSS_REL_TOL}
+           "worst_param": worst_name, "card_launches": launches, "bf16": bf16,
+           "loss_rel_tol": loss_tol, "model_grad_tol": model_tol,
+           **({} if bf16 else {"param_grad_tol": TRAIN_PARAM_GRAD_TOL})}
+    what = ("W+ attention" if wplus else "attention") + (" bf16" if bf16 else "")
+    bad = {k: v for k, v in loss_rel.items() if not v <= loss_tol}
     check(not bad, f"64² {what} step losses: {bad}")
-    check(model_rel <= TRAIN_MODEL_GRAD_TOL, f"64² {what} mapper grads: rel {model_rel}")
-    check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {what} mapper {worst_name}: rel {worst}")
+    check(model_rel <= model_tol, f"64² {what} mapper grads: rel {model_rel}")
+    if not bf16:
+        check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {what} mapper {worst_name}: rel {worst}")
     return rec
 
 
@@ -2912,11 +3229,11 @@ def phase_styleclip_inference(card: str, work: str, coach, exp_dir: str) -> dict
     return launches
 
 
-def styleclip_parts(size: int, mapper_type: str) -> tuple:
+def styleclip_parts(size: int, mapper_type: str, dtype=torch.float32) -> tuple:
     """(generator with non-zero noise gains, mapper, CLIP ViT-B/32, ArcFace)
-    at ``size`` on the CPU, seeded."""
+    at ``size`` on the CPU, seeded; the generator synthesises in ``dtype``."""
     rng = torch.Generator().manual_seed(31)
-    gen = Generator(size, rng=rng)
+    gen = Generator(size, rng=rng, dtype=dtype)
     with torch.no_grad():
         for name, p in gen.named_parameters():
             if name.endswith("noise.weight"):
@@ -2931,15 +3248,19 @@ def styleclip_parts(size: int, mapper_type: str) -> tuple:
     return gen.eval(), mapper, clip.eval(), facenet.eval()
 
 
-def styleclip_whole(mapper_type: str, work: str) -> dict:
+def styleclip_whole(mapper_type: str, work: str, bf16: bool = False) -> dict:
     """One coach step at 64², batch 2, from the same weights and W+ on the
     CPU and on the card: the loss terms (``TRAIN_LOSS_REL_TOL``), the
     mapper's gradient (``TRAIN_*_GRAD_TOL``); then 7 Ranger steps on each
     device from the pre-step parameters with the CPU's gradient
-    (``RANGER_REL_TOL``)."""
+    (``RANGER_REL_TOL``). With ``bf16`` a bf16 generator, at the bf16 bars
+    and without the Ranger part."""
     size = 64
     stylespace = "StyleSpace" in mapper_type
-    parts = styleclip_parts(size, mapper_type)
+    loss_tol, model_tol = ((BF16_LOSS_REL_TOL, BF16_MODEL_GRAD_TOL) if bf16
+                           else (TRAIN_LOSS_REL_TOL, TRAIN_MODEL_GRAD_TOL))
+    parts = styleclip_parts(size, mapper_type,
+                            torch.bfloat16 if bf16 else torch.float32)
     start = {n: p.detach().clone() for n, p in parts[1].named_parameters()}
     g = torch.Generator().manual_seed(33)
     w = torch.randn(STYLECLIP_BATCH, 2 * int(math.log2(size)) - 2, 512, generator=g) * 0.5
@@ -2948,7 +3269,8 @@ def styleclip_whole(mapper_type: str, work: str) -> dict:
     n = counts()
     for dev in ("cpu", DEV):
         gen, mapper, clip, facenet = (copy.deepcopy(m).to(dev) for m in parts)
-        cfg = CoachConfig(exp_dir=os.path.join(work, f"whole_{mapper_type}_{dev}"),
+        cfg = CoachConfig(exp_dir=os.path.join(work, f"whole_{mapper_type}_{dev}"
+                                                      + ("_bf16" if bf16 else "")),
                           mapper_type=mapper_type, work_in_stylespace=stylespace,
                           batch_size=STYLECLIP_BATCH, test_batch_size=STYLECLIP_BATCH,
                           train_dataset_size=STYLECLIP_BATCH,
@@ -2973,6 +3295,16 @@ def styleclip_whole(mapper_type: str, work: str) -> dict:
         if e > worst:
             worst, worst_name = e, name
     model_rel = math.sqrt(diff2 / ref2)
+    if bf16:
+        rec = {"size": size, "batch": STYLECLIP_BATCH, "mapper": mapper_type, "bf16": True,
+               "losses_cpu": loss_c, "losses_card": loss_g, "loss_rel": loss_rel,
+               "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
+               "worst_param": worst_name, "card_launches": launched,
+               "loss_rel_tol": loss_tol, "model_grad_tol": model_tol}
+        bad = {k: v for k, v in loss_rel.items() if not v <= loss_tol}
+        check(not bad, f"64² bf16 {mapper_type} coach step losses: {bad}")
+        check(model_rel <= model_tol, f"64² bf16 {mapper_type} mapper grads: rel {model_rel}")
+        return rec
     # the optimizer alone: 7 Ranger steps (across the rectifier's switch and
     # the Lookahead sync at 6) on each device with the CPU's gradient
     params = {}
@@ -3018,6 +3350,326 @@ def phase_styleclip_whole(card: str, work: str) -> None:
           "runs": runs})
 
 
+# ---------------------------------------------------------------------------
+# phases 17a-17d: the trainers in bf16, and the memory levers
+# ---------------------------------------------------------------------------
+
+BF16_TRAIN_FLAGS = ["--bf16", "--d_bf16", "--workers", "2", "--hflip",
+                    "--sample_every", "5", "--n_sample", "4"]
+LEVER_BATCH = 16
+LEVER_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier", "2",
+              "--batch", str(LEVER_BATCH), "--iter", "2", "--seed", "0",
+              "--save_every", "0", "--bf16", "--remat", "--d_bf16", "--d_remat",
+              "--d_microbatch", "4", "--g_microbatch", "8"]
+KERNEL_NAMES = ("modconv3x3", "conv3x3", "modconv1x1")
+
+
+def zero_counters() -> None:
+    for k in (k1, k2, k3):
+        k.launches = k.launches_bf16 = 0
+
+
+def launch_forms() -> dict:
+    """{kernel: {"bf16": launches, "fp32": launches}} since the counters
+    were set to 0."""
+    return {name: {"bf16": k.launches_bf16, "fp32": k.launches - k.launches_bf16}
+            for name, k in zip(KERNEL_NAMES, (k1, k2, k3))}
+
+
+def check_all_bf16(what: str) -> dict:
+    forms = launch_forms()
+    check(all(f["fp32"] == 0 for f in forms.values()),
+          f"{what}: fp32 kernel forms launched in a bf16 run: {forms}")
+    return forms
+
+
+def bf16_profile(trainer) -> dict:
+    """One more iteration of a bf16 trainer, at a step that runs every
+    program, under ``torch.profiler`` with shapes: the summary of phase 9,
+    device ms and launches of K1, K2 and K3 by form (kernel names carry
+    their element type), and every forward cuDNN convolution
+    (``aten::cudnn_convolution``) whose weight is 3x3 on a power-of-two
+    input at more than one sample: a K1 or K2 call of the trainer (batch
+    8, path batch 4), of which there must be none (the discriminator's
+    downsampling 3x3 convs run on odd sizes after their blur, the up-conv
+    is a transposed convolution). The same shapes at one sample are
+    counted apart: the path penalty's second derivative through K1's
+    per-sample weight gradient (plain, one sample per call) runs them."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    g = torch.Generator(DEV).manual_seed(3)
+    real = torch.rand(trainer.cfg.batch_size, SIZE, SIZE, 3, generator=g,
+                      device=DEV) * 2 - 1
+    trainer.global_step = 16 * trainer.cfg.g_reg_every * trainer.cfg.d_reg_every
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t0 = time.perf_counter()
+        trainer.step(real)
+        sync()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    summary = profile_summary(prof, wall_us, (), 1)
+    forms = defaultdict(lambda: [0.0, 0])
+    cudnn_ops = defaultdict(int)
+    on_kernel_shapes, per_sample = [], 0
+    for e in prof.events():
+        low = e.name.lower()
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kind = ("K1" if "modconv3x3" in low else "K2" if "conv3x3_tc" in low
+                    else "K3" if "modconv1x1" in low else None)
+            if kind:
+                form = "bf16" if "bfloat16" in low or "bf16" in low else "fp32"
+                forms[f"{kind} {form}"][0] += (e.time_range.end - e.time_range.start) / 1e3
+                forms[f"{kind} {form}"][1] += 1
+        elif low.startswith("aten::cudnn_convolution"):
+            cudnn_ops[e.name] += 1
+            shapes = e.input_shapes
+            if (e.name == "aten::cudnn_convolution" and len(shapes) >= 2
+                    and len(shapes[0]) == 4 and len(shapes[1]) == 4
+                    and list(shapes[1][2:]) == [3, 3]
+                    and shapes[0][2] >= 4 and shapes[0][2] & (shapes[0][2] - 1) == 0):
+                if shapes[0][0] == 1:
+                    per_sample += 1
+                else:
+                    on_kernel_shapes.append([list(shapes[0]), list(shapes[1])])
+    return {**summary, "kernel_forms": {k: {"ms": v[0], "launches": v[1]}
+                                        for k, v in sorted(forms.items())},
+            "cudnn_forward_ops": dict(cudnn_ops),
+            "cudnn_convs_on_k1_k2_shapes": on_kernel_shapes,
+            "cudnn_per_sample_wgrad_double_backward_convs": per_sample}
+
+
+def g_ema_file(work: str) -> tuple:
+    """A reference-layout ``.pt`` holding a seeded 1024² generator under
+    ``g_ema`` (the ``--ckpt`` warm start); (path, its state dict)."""
+    sd = Generator(SIZE, channel_multiplier=2,
+                   rng=torch.Generator().manual_seed(7)).state_dict()
+    path = os.path.join(work, "g_ema.pt")
+    torch.save({"g_ema": sd}, path)
+    return path, sd
+
+
+def train_records(probe, expect: dict) -> tuple:
+    """(ms per program, iteration ms, launches per program by step: (K1,
+    K2, K3) of the bf16 and of the fp32 forms) of a ``TrainProbe``, each
+    program's launches against ``expect`` where it has the program."""
+    ms, iteration_ms, got = defaultdict(list), defaultdict(float), {}
+    for (step, program, t, launched), bf16 in zip(probe.records, probe.bf16):
+        ms[program].append(t)
+        iteration_ms[step] += t
+        got[f"{step} {program}"] = {"bf16": bf16,
+                                    "fp32": tuple(a - b for a, b in zip(launched, bf16))}
+        if program in expect:
+            check(launched == expect[program], f"iteration {step} {program}: launches "
+                                               f"{launched}, expected {expect[program]}")
+    return dict(ms), [iteration_ms[s] for s in sorted(iteration_ms)], got
+
+
+def phase_train_bf16(card: str, work: str, fp32_peak_gib: float) -> tuple:
+    """17a: ``cli/train_stylegan.main`` at 1024², batch 8, 5 iterations with
+    ``--bf16 --d_bf16 --workers 2 --hflip --sample_every 5 --n_sample 4``,
+    warm-started with ``--ckpt`` from a ``g_ema`` file written here: G
+    starts from the file's weights, every K1, K2 and K3 launch is a bf16
+    form, each program's launches are phase 8's, every parameter moves,
+    the EMA sample grid is written (with Pillow); images/s, ms per program,
+    peak memory beside phase 8's fp32 run (``fp32_peak_gib``); then one
+    profiled iteration (``bf16_profile``). Returns ({kernel: launches}, the trainer)."""
+    path, sd = g_ema_file(work)
+    probe = TrainProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with tempfile.TemporaryDirectory() as results:
+        trainer = train_stylegan.main([*TRAIN_ARGS, *BF16_TRAIN_FLAGS, "--ckpt", path,
+                                       "--results_dir", results], span=probe)
+        grids = sorted(os.path.basename(f)
+                       for f in glob.glob(os.path.join(results, "sample_*.jpg")))
+    peak = torch.cuda.max_memory_allocated()
+    forms = check_all_bf16("17a")
+    launches = {k: v["bf16"] for k, v in forms.items()}
+    check(all(launches.values()), f"17a launches {launches}")
+    check(trainer.g.dtype == torch.bfloat16 and trainer.d.dtype == torch.bfloat16,
+          "17a: a bf16 generator and discriminator")
+    started = [n for (n, _), p0 in zip(trainer.g.named_parameters(), probe.start["g"])
+               if not torch.equal(p0.cpu(), sd[n])]
+    check(not started, f"--ckpt did not warm-start G: {started[:5]}")
+    for m in ("g", "d"):
+        still = [n for (n, p), p0 in zip(getattr(trainer, m).named_parameters(),
+                                         probe.start[m]) if torch.equal(p, p0)]
+        check(not still, f"17a: {m} parameters that did not move: {still[:5]}")
+    pil = importlib.util.find_spec("PIL") is not None
+    check(grids == ["sample_0000005.jpg"] if pil else grids == [],
+          f"17a sample grids {grids} (Pillow: {pil})")
+    expect = {p: total(*v) for p, v in train_launches(trainer.g.log_size - 2).items()}
+    ms, iteration_ms, by_program = train_records(probe, expect)
+    batch = trainer.cfg.batch_size
+    emit({"phase": "train_bf16", "card": card, "size": SIZE, "batch": batch,
+          "flags": BF16_TRAIN_FLAGS + ["--ckpt"], "iterations": len(iteration_ms),
+          "launches_by_form": forms,
+          "launches_per_program": expect, "launches_by_step_program": by_program,
+          "ms_per_program": ms,
+          "iteration_ms": iteration_ms,
+          "images_per_s": batch * len(iteration_ms) / (sum(iteration_ms) / 1e3),
+          "losses": probe.losses, "peak_mem_gib": peak / 2 ** 30,
+          "fp32_peak_mem_gib": fp32_peak_gib, "sample_grids": grids,
+          "pillow": pil,
+          "note": "each program fenced by torch.cuda.synchronize; iteration 0 runs "
+                  "R1 and path length and builds cuDNN plans; fp32_peak_mem_gib is "
+                  "phase 8's run (the same flags without the bf16 ones)"})
+    zero_counters()
+    rec = bf16_profile(trainer)
+    emit({"phase": "train_bf16_profile", "card": card, "size": SIZE, "batch": batch,
+          **rec})
+    check(not rec["cudnn_convs_on_k1_k2_shapes"],
+          f"cuDNN ran K1/K2 shapes: {rec['cudnn_convs_on_k1_k2_shapes'][:3]}")
+    check_all_bf16("17a profile")
+    return launches, trainer
+
+
+def phase_train_levers(card: str) -> dict:
+    """17b: two iterations at 1024², batch 16, with ``--bf16 --remat
+    --d_bf16 --d_remat --d_microbatch 4 --g_microbatch 8``: peak memory, ms
+    per program, launches per program against the same programs without
+    remat (``train_launches`` per chunk: 4 D chunks, 2 G chunks, the path
+    batch 8), whose difference is what the recomputing forwards add; every
+    launch a bf16 form. Returns {kernel: launches}."""
+    probe = TrainProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    with tempfile.TemporaryDirectory() as results:
+        trainer = train_stylegan.main([*LEVER_ARGS, "--results_dir", results], span=probe)
+    peak = torch.cuda.max_memory_allocated()
+    forms = check_all_bf16("17b")
+    n_oct = trainer.g.log_size - 2
+    base = train_launches(n_oct)
+    nd = LEVER_BATCH // trainer.cfg.d_microbatch
+    ng = LEVER_BATCH // trainer.cfg.g_microbatch
+    lay = n_oct + 1
+    without_remat = {  # the fake batch once, then each chunk's programs
+        "d": total((lay, 0, lay), tuple(nd * v for v in (0, 4 * lay, 0))),
+        "r1": tuple(nd * v for v in total(*base["r1"])),
+        "g": tuple(ng * v for v in total(*base["g"])),
+        "path": total(*base["path"])}
+    ms, iteration_ms, got = train_records(probe, {"path": without_remat["path"]})
+    extra = {k: tuple(a - b for a, b in zip(v["bf16"], without_remat[k.split()[1]]))
+             for k, v in got.items() if k.split()[1] in without_remat}
+    g_extra = [v for k, v in extra.items() if k.endswith(" g")]
+    d_extra = [v for k, v in extra.items() if k.endswith(" d")]
+    check(all(e[0] > 0 and e[2] > 0 for e in g_extra), f"--remat recomputed no G: {g_extra}")
+    check(all(e[1] > 0 for e in d_extra), f"--d_remat recomputed no D block: {d_extra}")
+    emit({"phase": "train_levers", "card": card, "size": SIZE, "batch": LEVER_BATCH,
+          "flags": LEVER_ARGS[LEVER_ARGS.index("--bf16"):], "d_chunks": nd,
+          "g_chunks": ng,
+          "launches_by_form": forms, "launches_by_step_program": got,
+          "launches_without_remat": without_remat, "remat_extra_launches": extra,
+          "ms_per_program": ms, "iteration_ms": iteration_ms,
+          "images_per_s": LEVER_BATCH * len(iteration_ms) / (sum(iteration_ms) / 1e3),
+          "losses": probe.losses, "peak_mem_gib": peak / 2 ** 30,
+          "note": "iteration 0 runs every program (R1 and path length) and builds "
+                  "cuDNN plans; each program fenced by torch.cuda.synchronize"})
+    del trainer
+    return {k: v["bf16"] for k, v in forms.items()}
+
+
+def phase_attention_bf16(card: str, cluster_path: str) -> dict:
+    """17c (region attention): ``cli/run_attention.main`` with ``--bf16
+    --remat`` at 1024², batch 8, 4 steps, through the production S-space
+    branch on phase 11's pickle, with phase 12's probe: every K1 launch a
+    bf16 form, and every K3 launch but those of a StyledConv whose input is
+    fp32 (the mapper's ``attention_first``, over the generator's fp32
+    constant input, as in the JAX mapper; counted by a forward hook); the
+    edit synthesis' launches phase 12's; ms per step over steps 1-3 with
+    the fenced stage split (the recomputed synthesis runs inside
+    ``backward``), peak memory. Returns {kernel: launches}."""
+    probe = AttentionProbe()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    steps = 4
+    fp32_convs = [0]
+
+    def count_fp32(module, args, out):
+        if isinstance(module, StyledConv) and args[0].dtype == torch.float32:
+            fp32_convs[0] += 1
+
+    hook = torch.nn.modules.module.register_module_forward_hook(count_fp32)
+    try:
+        with tempfile.TemporaryDirectory() as results:
+            run_attention.main(["--stylegan_size", str(SIZE), "--work_in_stylespace",
+                                "--use_cluster", "--cluster_path", cluster_path,
+                                "--batch_size", str(ATTENTION_BATCH), "--step", str(steps),
+                                "--save_intermediate_image_every", "0", "--bf16", "--remat",
+                                "--device", DEV, "--results_dir", results], span=probe)
+    finally:
+        hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    forms = launch_forms()
+    check(forms["modconv3x3"]["fp32"] == forms["conv3x3"]["fp32"] == 0
+          and forms["modconv1x1"]["fp32"] == fp32_convs[0],
+          f"17c attention: launches by form {forms}, fp32-input StyledConv calls "
+          f"{fp32_convs[0]}")
+    trainer = probe.trainer
+    check(trainer.cfg.remat and trainer.generator.dtype == torch.bfloat16,
+          "17c: a bf16 generator and remat")
+    expect = attention_launches(trainer.generator.log_size - 2,
+                                len(trainer.mapper.layer_num) + 2)
+    stage_ms, step_ms, per_stage = defaultdict(list), defaultdict(float), {}
+    for step, stage, ms, got, _ in probe.records:
+        if stage in ("synthesis", "mapper", "edit"):
+            check(got == expect[stage], f"17c step {step} {stage}: launches {got}, "
+                                        f"expected {expect[stage]}")
+        per_stage[stage] = got
+        if step >= 1:
+            stage_ms[stage].append(ms)
+            step_ms[step] += ms
+    per_step = [step_ms[s] for s in sorted(step_ms)]
+    emit({"phase": "attention_bf16", "card": card, "size": SIZE, "batch": ATTENTION_BATCH,
+          "steps": steps, "flags": ["--bf16", "--remat"], "launches_by_form": forms,
+          "fp32_input_styledconv_calls": fp32_convs[0],
+          "launches_per_stage": per_stage, "step_ms": per_step,
+          "mean_step_ms": statistics.mean(per_step),
+          "stage_ms_mean": {k: statistics.mean(v) for k, v in stage_ms.items()},
+          "samples_per_s": ATTENTION_BATCH * len(per_step) / (sum(per_step) / 1e3),
+          "peak_mem_gib": peak / 2 ** 30,
+          "note": "steps 1-3, each stage fenced by torch.cuda.synchronize; with "
+                  "--remat the edit synthesis runs again inside backward"})
+    return {k: v["bf16"] for k, v in forms.items()}
+
+
+def phase_styleclip_bf16(card: str, work: str) -> dict:
+    """17c (StyleCLIP): ``cli/mapper_train.main --bf16`` at 1024², batch 2, 4
+    steps (0-3), through ``run_styleclip`` (phase 16a's checks and
+    numbers); every launch a bf16 form. Returns {kernel: launches}."""
+    zero_counters()
+    _, _, coach, _ = run_styleclip(card, work, "styleclip_bf16", ["--bf16"], 3)
+    check(coach.generator.dtype == torch.bfloat16, "17c: a bf16 coach generator")
+    forms = check_all_bf16("17c styleclip")
+    emit({"phase": "styleclip_bf16_forms", "launches_by_form": forms})
+    return {k: v["bf16"] for k, v in forms.items()}
+
+
+def phase_bf16_whole(card: str, work: str) -> None:
+    """17d: card against CPU at 64² in bf16, each under
+    ``cudnn.deterministic``: one GAN iteration (``train_whole(bf16=True)``:
+    every program from the same state, and the image), one region-attention
+    step and one StyleCLIP coach step (``LevelsMapper``), at the bf16 bars;
+    the card's runs on the bf16 forms."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    n = counts_bf16()
+    try:
+        runs = {"gan": train_whole(bf16=True), "attention": attention_whole(bf16=True),
+                "styleclip": styleclip_whole("LevelsMapper", work, bf16=True)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    launched = tuple(a - b for a, b in zip(counts_bf16(), n))
+    emit({"phase": "bf16_whole", "card": card, "cudnn_deterministic": True,
+          "card_bf16_launches": launched, "runs": runs})
+    check(launched[0] > 0 and launched[1] > 0 and launched[2] > 0,
+          f"17d: bf16 launches {launched}")
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3030,7 +3682,9 @@ def main(argv=None) -> None:
         phase_build()
         with tempfile.TemporaryDirectory() as work:
             totals = phase_kernels()
+            totals_bf16 = phase_kernels_bf16()
             train_fwd_err, backward_err = phase_backward()
+            backward_bf16_err = phase_backward_bf16()
             edit_launches, session, s_per_edit, s_p50 = phase_slice()
             phase_profile(session, card)
             whole = phase_whole()
@@ -3042,10 +3696,14 @@ def main(argv=None) -> None:
             del session
             phase_invert_whole(psp, ckpt, x1)
             del psp, ckpt
-            train_launches_run, backward_launches, trainer = phase_train(card)
+            train_launches_run, backward_launches, trainer, fp32_peak = phase_train(card)
             phase_train_profile(trainer, card)
             del trainer
             phase_train_whole()
+            bf16_launches = {}
+            bf16_launches["train_bf16"], trainer = phase_train_bf16(card, work, fp32_peak)
+            del trainer
+            bf16_launches["train_levers"] = phase_train_levers(card)
             with tempfile.TemporaryDirectory() as keep:
                 cluster_launches, cluster_path = phase_cluster(card, keep)
                 attention_run, attention_backward, trainer, final_path = phase_attention(
@@ -3056,6 +3714,7 @@ def main(argv=None) -> None:
                 phase_attention_whole()
                 load_launches = phase_mapper_load(card, final_path)
                 wplus_train_launches = phase_wplus_train(card, cluster_path)
+                bf16_launches["attention_bf16"] = phase_attention_bf16(card, cluster_path)
             eval_launches = {"evaluate_edits": phase_evaluate_edits(card, work),
                              "evaluate_iou": phase_evaluate_iou(card, work, faces)}
             phase_evaluate_whole(card, work)
@@ -3068,6 +3727,8 @@ def main(argv=None) -> None:
                 card, work, coach, exp_dir)
             del coach
             phase_styleclip_whole(card, work)
+            bf16_launches["styleclip_bf16"] = phase_styleclip_bf16(card, work)
+            phase_bf16_whole(card, work)
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -3149,6 +3810,38 @@ def main(argv=None) -> None:
                     "passes, and 16b styleclip_stylespace) and "
                     "cli/mapper_inference.py's run (phase 16c "
                     "styleclip_inference)"})
+    for name, (src, replaces) in sources.items():
+        tot = totals_bf16[BF16_NAMES[name]]
+        by_path = {path: got[name] for path, got in bf16_launches.items()}
+        kernels.append({
+            "name": BF16_NAMES[name], "route": "cuda", "source": src,
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path, "max_abs_err": tot["max_abs_err"],
+            "max_rel_err": tot["max_rel_err"],
+            **({"backward_max_rel_l2": backward_bf16_err[BF16_NAMES[name]]}
+               if BF16_NAMES[name] in backward_bf16_err else {}),
+            "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+            "library_ms": tot["library_ms"],
+            "library_device_ms": tot["library_device_ms"],
+            "core": ("tensor cores (wgmma), one bf16 MMA per 16 channels, fp32 sums, "
+                     "on csrc/conv3x3_tc.cuh" if name != "modconv1x1"
+                     else "fp32 FMA units on bf16 input"),
+            "note": "the bf16 form (phase 3b): ms, device_ms, plain_ms, bound_ms, "
+                    "library_ms: sums over "
+                    + ("the 1024² trainer's 9 shapes at batch 8" if name == "modconv3x3"
+                       else "the 1024² discriminator's shapes at batch 8"
+                       if name == "conv3x3" else
+                       "the bf16 trainers' shapes: the 9 ToRGBs at batch 8 and 2 "
+                       "with fp32 out, the attention trainer's 18 mapper convs at "
+                       "batch 8 with bf16 out")
+                    + "; bound_ms at 2 bytes per bf16 value and "
+                    + ("the bf16 tensor cores' 989 TFLOP/s" if name != "modconv1x1"
+                       else "the fp32 FMA rate")
+                    + "; library_ms: cuDNN F.conv2d (K3: the einsum) in bf16 plus the "
+                    "epilogue; launches: the bf16 trainer runs (phases 17a train_bf16, "
+                    "17b train_levers, 17c attention_bf16 and styleclip_bf16)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

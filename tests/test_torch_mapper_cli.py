@@ -217,3 +217,16 @@ def test_torch_mapper_inference_refuses_stylespace(tmp_path):
     with pytest.raises(SystemExit, match="work_in_stylespace"):
         mapper_inference.main(["--exp_dir", str(tmp_path / "inf"), "--checkpoint_path",
                                ckpt, "--latents_test_path", lat, "--device", "cpu"])
+
+
+def test_torch_mapper_train_cli_bf16(tmp_path, clip_file):
+    """``--bf16``: the coach's generator synthesises in bf16 (its image and
+    the losses fp32), the mapper trains, the run's options keep the flag."""
+    coach = mapper_train.main(_train_args(tmp_path / "bf16", clip_file, "--bf16"))
+    assert coach.global_step == 4
+    assert coach.generator.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in coach.mapper.parameters())
+    assert json.load(open(tmp_path / "bf16" / "opt.json"))["bf16"] is True
+    ckpt = _load(tmp_path / "bf16" / "checkpoints" / "iteration_4.pt")
+    assert all(torch.isfinite(v).all() for v in ckpt["state_dict"].values())
+    assert np.isfinite(coach.best_val_loss)

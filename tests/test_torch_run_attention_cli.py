@@ -9,6 +9,7 @@ S-space one without clusters) for 2 steps each, resumed bit for bit from
 their step-1 checkpoint; the ``--latent_path`` loader.
 """
 
+import contextlib
 import os
 import signal
 
@@ -77,6 +78,28 @@ def test_torch_run_attention_cli_two_steps(assets, tmp_path):
     assert "attention_0.conv.modulation.weight" in ckpt["mapper"]  # reference keys
     centers = np.asarray(ckpt["mapper"]["initial_state"])
     assert centers.shape == (10, 576) and np.abs(centers).max() > 0
+
+
+def test_torch_run_attention_cli_bf16_remat(assets, tmp_path):
+    """``--bf16 --remat``: a bf16 generator (fp32 parameters, fp32 image)
+    and the grad-pass synthesis recomputed in the backward; two steps with
+    finite losses, and the mapper trained."""
+    captured = {}
+
+    def span(stage, trainer):
+        captured["trainer"] = trainer
+        return contextlib.nullcontext()
+
+    out = run_attention.main(_args(assets, tmp_path, "--step", "2", "--batch_size", "2",
+                                   "--save_intermediate_image_every", "0", "--bf16",
+                                   "--remat"), span=span)
+    trainer = captured["trainer"]
+    assert trainer.cfg.remat and trainer.generator.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in trainer.generator.parameters())
+    log = open(os.path.join(out, "run.log")).read()
+    assert "step 1: loss=" in log and "nan" not in log.lower()
+    ckpt = torch.load(os.path.join(out, "final_mapper.pt"), weights_only=True)
+    assert ckpt["step"] == 2 and ckpt["opts"]["bf16"] and ckpt["opts"]["remat"]
 
 
 def test_torch_run_attention_cli_sigterm_resume_bitwise(assets, tmp_path, monkeypatch):

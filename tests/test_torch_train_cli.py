@@ -7,6 +7,7 @@ uninterrupted run did; ``--fid_every`` (the EMA generator's FID, logged as
 
 import contextlib
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -141,3 +142,86 @@ def test_torch_train_cli_fid_every(tmp_path):
                                        .image).numpy() for i in (0, 2)])
     assert real.shape == fake.shape == (4, 512)
     assert frechet_distance(real, fake) == fids[0]["value"]
+
+
+def test_torch_train_cli_ckpt_warm_start(tmp_path):
+    """``--ckpt``: G and its EMA start from a reference ``.pt``'s ``g_ema``
+    (here at ``--iter 0``, so nothing moves them), in bf16 too."""
+    from where2edit_tpu_torch.models.stylegan2 import Generator  # noqa: PLC0415
+
+    sd = Generator(16, rng=torch.Generator().manual_seed(9)).state_dict()
+    torch.save({"g_ema": sd}, tmp_path / "g.pt")
+    for flags in ([], ["--bf16"]):
+        trainer = train_stylegan.main([*ARGS, "--iter", "0", "--ckpt", str(tmp_path / "g.pt"),
+                                       "--results_dir", str(tmp_path / "r"), *flags])
+        assert trainer.g.dtype == (torch.bfloat16 if flags else torch.float32)
+        for model in (trainer.g, trainer.g_ema):
+            for name, v in model.state_dict().items():
+                assert torch.equal(v, sd[name]), name
+    shutil.rmtree(tmp_path)  # full-width G and D checkpoints, ~0.2 GB each
+
+
+def test_torch_train_cli_ckpt_missing_file_exits(tmp_path):
+    """A ``--ckpt`` that names no file stops the run before any step,
+    rather than training G from random weights."""
+    with pytest.raises(SystemExit, match="no such file"):
+        train_stylegan.main([*ARGS, "--iter", "1", "--ckpt", str(tmp_path / "none.pt"),
+                             "--results_dir", str(tmp_path / "r")])
+    assert not os.path.exists(tmp_path / "r")
+
+
+def test_torch_train_cli_bf16_levers_loader_and_grids(tmp_path):
+    """Every new flag at 32²: bf16 G and D, remat, d_remat, both
+    micro-batches, the background loader with flips, an EMA sample grid
+    per step; finite losses, and the trainer built as the flags say."""
+    out = tmp_path / "levers"
+    trainer = train_stylegan.main([
+        "--synthetic", "6", "--size", "32", "--batch", "4", "--device", "cpu",
+        "--iter", "2", "--save_every", "0", "--bf16", "--remat", "--d_bf16", "--d_remat",
+        "--d_microbatch", "2", "--g_microbatch", "2", "--workers", "2", "--hflip",
+        "--sample_every", "1", "--n_sample", "4", "--results_dir", str(out)])
+    cfg = trainer.cfg
+    assert (cfg.bf16, cfg.remat, cfg.d_bf16, cfg.d_remat, cfg.d_microbatch,
+            cfg.g_microbatch) == (True, True, True, True, 2, 2)
+    assert trainer.g.dtype == trainer.d.dtype == torch.bfloat16 and trainer.d.remat
+    assert all(p.dtype == torch.float32 for p in trainer.g.parameters())
+    assert all(np.isfinite(float(v)) for v in trainer.metrics.values())
+    assert sorted(f for f in os.listdir(out) if f.startswith("sample_")) == [
+        "sample_0000001.jpg", "sample_0000002.jpg"]
+    assert os.path.isfile(out / "ckpt_0000002.pt")
+    shutil.rmtree(tmp_path)  # full-width G and D checkpoints, ~0.6 GB each
+
+
+def test_torch_train_cli_sigterm_resume_bit_exact(tmp_path, monkeypatch):
+    """SIGTERM during a step: a checkpoint at the next step boundary, a
+    clean return (None); ``--resume`` of it ends bit for bit where an
+    uninterrupted run ends, the draws, the real-image stream and the flip
+    stream included (the loader with ``--hflip``)."""
+    import signal  # noqa: PLC0415
+
+    common = [*ARGS[:-2], "--save_every", "0", "--iter", "4", "--d_reg_every", "2",
+              "--g_reg_every", "2", "--hflip", "--workers", "1"]
+    train_stylegan.main([*common, "--results_dir", str(tmp_path / "full")])
+    orig_step = GANTrainer.step
+
+    def step_with_sigterm(self, real, span=None):
+        if self.global_step == 2:
+            signal.raise_signal(signal.SIGTERM)
+        return orig_step(self, real, span)
+
+    monkeypatch.setattr(GANTrainer, "step", step_with_sigterm)
+    assert train_stylegan.main([*common, "--results_dir", str(tmp_path / "pre")]) is None
+    monkeypatch.setattr(GANTrainer, "step", orig_step)
+    ckpts = sorted(f for f in os.listdir(tmp_path / "pre") if f.startswith("ckpt_"))
+    assert ckpts == ["ckpt_0000003.pt"]  # step 2 finished, then the boundary
+    resumed = train_stylegan.main([*common, "--results_dir", str(tmp_path / "res"),
+                                   "--resume", str(tmp_path / "pre" / ckpts[0])])
+    assert resumed.global_step == 4
+    want = torch.load(tmp_path / "full" / "ckpt_0000004.pt", weights_only=True)
+    got = torch.load(tmp_path / "res" / "ckpt_0000004.pt", weights_only=True)
+    for part in ("g", "d", "g_ema"):
+        for name, v in want[part].items():
+            assert torch.equal(got[part][name], v), (part, name)
+    assert torch.equal(got["pl_mean"], want["pl_mean"])
+    assert torch.equal(got["rng"], want["rng"])
+    shutil.rmtree(tmp_path)  # three full-width G and D checkpoints, ~0.4 GB each

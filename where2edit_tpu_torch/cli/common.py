@@ -33,12 +33,15 @@ def snapshot_sources(output_dir: str) -> str:
 
 
 def build_generator(size: int, ckpt_path: str | None,
-                    channel_multiplier: int = 2, device=None, seed: int = 0):
+                    channel_multiplier: int = 2, device=None, seed: int = 0,
+                    dtype: torch.dtype = torch.float32):
     """(generator on ``device``, latent_avg or None): the ``g_ema`` of
     ``ckpt_path`` (or the whole file as a state dict) when that file exists,
-    else seeded random weights drawn on the CPU."""
+    else seeded random weights drawn on the CPU. ``dtype=torch.bfloat16``
+    synthesises in bf16 (the trainers' ``--bf16``); the parameters, the
+    modulation, demod and the RGB chain stay fp32."""
     gen = Generator(size, channel_multiplier=channel_multiplier,
-                    rng=torch.Generator().manual_seed(seed))
+                    rng=torch.Generator().manual_seed(seed), dtype=dtype)
     latent_avg = None
     if ckpt_path and os.path.isfile(ckpt_path):
         ckpt = load_torch_state(ckpt_path)

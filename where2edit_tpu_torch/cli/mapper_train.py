@@ -1,5 +1,5 @@
 """StyleCLIP latent-mapper training CLI (counterpart of
-where2edit_tpu/cli/mapper_train.py), one card, fp32.
+where2edit_tpu/cli/mapper_train.py), one card.
 
 Refuses an existing ``--exp_dir``, writes ``opt.json`` there, builds the
 frozen generator, CLIP (``--clip_ckpt``, else ViT-B/32 with seeded random
@@ -14,9 +14,10 @@ Runs on CUDA unless ``--device cpu`` is given (and raises without a card).
 a reference StyleCLIP ``.pt`` (its ``mapper.*`` entries; ``decoder.*`` are
 ignored); ``--resume`` restores a checkpoint of this CLI whole (mapper,
 optimizer, step, shuffle position). SIGTERM leaves a ``preempt.pt``
-snapshot at the next step boundary. The JAX CLI's ``--bf16``,
-``--use_mesh`` and ``--s2d_octaves`` are not here (the first two wait for
-bf16 and DDP; the last is a TPU layout lever).
+snapshot at the next step boundary. ``--bf16`` runs the coach's syntheses
+in bf16 (its losses stay fp32). The JAX CLI's ``--use_mesh`` and
+``--s2d_octaves`` are not here (the first waits for DDP; the last is a TPU
+layout lever).
 """
 
 from __future__ import annotations
@@ -86,6 +87,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--image_interval", type=int, default=100)
     p.add_argument("--save_interval", type=int, default=None)
     p.add_argument("--val_interval", type=int, default=2000)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 synthesis during training (losses stay fp32)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
     return p
@@ -117,7 +120,8 @@ def main(argv=None, span=None) -> Coach:
         json.dump(vars(args), f, indent=4, sort_keys=True)
 
     gen, latent_avg = build_generator(args.stylegan_size, args.stylegan_weights,
-                                      device=dev)
+                                      device=dev, dtype=torch.bfloat16 if args.bf16
+                                      else torch.float32)
     if latent_avg is None:
         latent_avg = mean_latent(gen, torch.Generator(dev).manual_seed(0))
 

@@ -1,5 +1,5 @@
 """Phase-2 region-attention training CLI (counterpart of
-where2edit_tpu/cli/run_attention.py), one card, fp32.
+where2edit_tpu/cli/run_attention.py), one card.
 
 Trains a region-attention mapper against CLIP, VGG and InfoNCE with the
 generator frozen. The flags pick it as the JAX CLI does:
@@ -11,6 +11,9 @@ generator frozen. The flags pick it as the JAX CLI does:
 With it: the corpus, the region-prompt bank,
 periodic checkpoints with image and attention grids and ``video.txt``, the
 own-phrase renders, a SIGTERM snapshot and a bit-exact ``--resume``.
+``--bf16`` synthesises in bf16 (the losses, demod and Adam stay fp32);
+``--remat`` recomputes the edit synthesis in the backward pass instead of
+keeping its activations.
 
     python -m where2edit_tpu_torch.cli.run_attention --work_in_stylespace \\
         --use_cluster --cluster_path results/k_means_layer_13_10_clusters.pkl \\
@@ -113,6 +116,12 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--resume", type=str, default="",
                    help="checkpoint file written by this CLI (or a bare "
                         "mapper state dict)")
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 synthesis during training (losses, demod and Adam "
+                        "stay fp32)")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the grad-pass synthesis in the backward pass: "
+                        "the same numbers, one more forward")
     p.add_argument("--seed", type=int, default=200)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
@@ -218,7 +227,8 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
     corpus = load_corpus(args.description_dir, None, args.own_description_dir,
                          host_rng)
     gen, _ = build_generator(args.stylegan_size, args.ckpt,
-                             args.channel_multiplier, device=dev)
+                             args.channel_multiplier, device=dev,
+                             dtype=torch.bfloat16 if args.bf16 else torch.float32)
     mean_w = mean_latent(gen, rng)
     clip_loss = CLIPLoss(load_clip(args.clip_ckpt, dev), args.stylegan_size)
     perceptual = PerceptualLoss(load_vgg(args.vgg_ckpt, dev), args.stylegan_size)
@@ -250,7 +260,8 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         lr=args.lr, lambda_ess=args.lambda_ess, lambda_sec=args.lambda_sec,
         lambda_id=args.lambda_id, lambda_delta=args.lambda_delta,
         step=args.step, truncation=args.truncation,
-        work_in_stylespace=args.work_in_stylespace, seed=args.seed)
+        work_in_stylespace=args.work_in_stylespace, seed=args.seed,
+        remat=args.remat)
     trainer = AttentionTrainer(cfg, generator=gen, mapper=mapper,
                                clip_loss=clip_loss, perceptual=perceptual,
                                mean_latent=mean_w, latent_bank=latent_bank,

@@ -113,25 +113,43 @@ def sm_count(device_index: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def split_count(name: str, b: int, h: int, wd: int, cin: int, cout: int,
-                device_index: int) -> int:
+                device_index: int, bf16: bool = False) -> int:
     """How many blocks share each output tile's Cin range in the 3x3 core of
-    ``csrc/<name>.cu`` (its ``w2e_<name>_splits``), per shape and card."""
-    return load(name, f"w2e_{name}_splits", [ctypes.c_int] * 6)(
-        b, h, wd, cin, cout, sm_count(device_index))
+    ``csrc/<name>.cu`` (its ``w2e_<name>_splits``), per shape, card and
+    form (fp32 or bf16)."""
+    return load(name, f"w2e_{name}_splits", [ctypes.c_int] * 7)(
+        b, h, wd, cin, cout, sm_count(device_index), int(bf16))
 
 
 def ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def kernel_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """The form of a kernel call, from its input: fp32 or bf16 (one dtype
+    per call; every other operand but the output stays fp32)."""
+    if x.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"{name}: x must be float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+
+
+def upcast(t: torch.Tensor) -> torch.Tensor:
+    """A bf16 tensor in fp32 (exactly); any other as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def check_cuda_tensor(name: str, t: torch.Tensor, shape: tuple,
-                      device: torch.device) -> None:
-    """Raise unless ``t`` is a contiguous, 16-byte-aligned fp32 tensor of
-    ``shape`` on ``device``."""
+                      device: torch.device,
+                      dtype: torch.dtype = torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous, 16-byte-aligned ``dtype`` tensor
+    of ``shape`` on ``device``."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
@@ -143,16 +161,17 @@ def check_cuda_tensor(name: str, t: torch.Tensor, shape: tuple,
 def plain_epilogue(y: torch.Tensor, noise: torch.Tensor | None,
                    noise_weight: torch.Tensor | None, bias: torch.Tensor | None,
                    act: bool, residual: torch.Tensor | None = None) -> torch.Tensor:
-    """act(y + noise_weight·noise + bias) + residual, channels last; ``noise``
-    has y's shape without the channel axis (batch may be 1)."""
+    """act(y + noise_weight·noise + bias) + residual, channels last, in y's
+    dtype; ``noise`` has y's shape without the channel axis (batch may be
+    1)."""
     if noise is not None:
-        y = y + noise_weight * noise[..., None]
+        y = y + (noise_weight * noise[..., None]).to(y.dtype)
     if act:
         y = fused_leaky_relu(y, bias)
     elif bias is not None:
-        y = y + bias
+        y = y + bias.to(y.dtype)
     if residual is not None:
-        y = y + residual
+        y = y + residual.to(y.dtype)
     return y
 
 
@@ -195,15 +214,27 @@ def tf32_rna(t: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
-def tc_prepared_plain(w: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+def tc_prepared_plain(w: torch.Tensor, scale: float = 1.0,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain twin of the weight preparation of ``csrc/conv3x3_tc.cuh``
     (``conv3x3_tc_prep``), for the tests: w (3,3,Cin,Cout)·scale split into
     big = tf32(v) and small = tf32(v - big), flat in the kernel's layout
     [Cout tile][chunk][tap][part][nb][kh][r][q] (part 0 big, 1 small) for
     output channel tile·BN + 8·nb + r and input channel chunk·8 + 2·q + kh,
-    zeros past Cin and Cout. BN is 32, 64 or 128 by Cout."""
+    zeros past Cin and Cout. BN is 32, 64 or 128 by Cout. With ``dtype``
+    bf16, the bf16 form (``conv3x3_tc_prep_bf16``): round(w·scale), no
+    split, [Cout tile][chunk][tap][nb][kh][r][j] for input channel
+    chunk·16 + 4·(j // 2) + 2·kh + j % 2."""
     cin, cout = w.shape[2], w.shape[3]
     bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
+    if dtype == torch.bfloat16:
+        chunks, tiles = -(-cin // 16), -(-cout // bn)
+        v = torch.zeros(9, chunks * 16, tiles * bn, dtype=torch.float32)
+        v[:, :cin, :cout] = (w.float().cpu() * scale).reshape(9, cin, cout)
+        # ci = chunk·16 + 4·q + 2·kh + lo (j = 2q + lo), n = tile·bn + 8·nb + r
+        v = v.to(torch.bfloat16).reshape(9, chunks, 4, 2, 2, tiles, bn // 8, 8)
+        # (tap, chunk, q, kh, lo, tile, nb, r) -> (tile, chunk, tap, nb, kh, r, q, lo)
+        return v.permute(5, 1, 0, 6, 3, 7, 2, 4).reshape(-1)
     chunks, tiles = -(-cin // 8), -(-cout // bn)
     v = torch.zeros(9, chunks * 8, tiles * bn, dtype=torch.float32)
     v[:, :cin, :cout] = (w.float().cpu() * scale).reshape(9, cin, cout)

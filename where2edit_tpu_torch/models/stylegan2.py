@@ -6,6 +6,15 @@ to_rgb): 26 style vectors and 26 feature taps. The 1-based
 ``attention_layer`` indexes the tap list; blending at a conv layer also
 rewrites the octave's to_rgb skip (the reference fork's ``this_layer``
 coupling).
+
+``Generator(dtype=torch.bfloat16)`` synthesises in bf16 (the JAX
+Generator's ``dtype``): the activations, the convs and the taps are bf16
+while the parameters, the style MLP, demod and the RGB skip chain stay
+fp32, and the returned image is fp32. ``Discriminator(dtype=, remat=)``
+runs its conv tower in ``dtype`` (the minibatch-stddev statistic and the
+final linears in fp32) and, with ``remat``, recomputes each ``ResBlock``
+in the backward pass (``torch.utils.checkpoint``) instead of keeping its
+activations.
 """
 
 from __future__ import annotations
@@ -15,6 +24,7 @@ from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from where2edit_tpu_torch.nn.layers import (
     ConstantInput,
@@ -79,9 +89,11 @@ class Generator(nn.Module):
     def __init__(self, size: int, style_dim: int = 512, n_mlp: int = 8,
                  channel_multiplier: int = 2,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1),
-                 lr_mlp: float = 0.01, rng: torch.Generator | None = None):
+                 lr_mlp: float = 0.01, rng: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.size = size
+        self.dtype = dtype  # of the synthesis (the parameters stay fp32)
         self.style_dim = style_dim
         self.log_size = int(math.log2(size))
         self.num_layers = (self.log_size - 2) * 2 + 1
@@ -241,7 +253,7 @@ class Generator(nn.Module):
             first, second, i, step = latent[:, 0], latent[:, 1], 1, 2
         kw = dict(input_is_stylespace=input_is_stylespace)
 
-        out = self.input(batch)
+        out = self.input(batch).to(self.dtype)
         out, s = self.conv1(out, first, noise=noise[0], rng=rng, **kw)
         out = tap(out)
         style_vector.append(s)
@@ -279,8 +291,11 @@ class Discriminator(nn.Module):
 
     def __init__(self, size: int, channel_multiplier: int = 2,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1),
-                 rng: torch.Generator | None = None):
+                 rng: torch.Generator | None = None,
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
+        self.dtype = dtype  # of the conv tower (the parameters stay fp32)
+        self.remat = remat
         ch = channel_table(channel_multiplier)
         log_size = int(math.log2(size))
         convs = [ConvLayer(3, ch[size], 1, rng=rng)]
@@ -297,15 +312,21 @@ class Discriminator(nn.Module):
             EqualLinear(ch[4], 1, rng=rng))
 
     def forward(self, x):
-        out = self.convs(x)
+        out = x.to(self.dtype)
+        for block in self.convs:
+            if self.remat and isinstance(block, ResBlock):
+                out = checkpoint(block, out, use_reentrant=False)
+            else:
+                out = block(out)
         b, h, w, c = out.shape
         # one stddev feature per group of min(B, 4) samples, sample i in
-        # group i % (B / group) as the reference's view(group, -1, ...)
+        # group i % (B / group) as the reference's view(group, -1, ...);
+        # fp32, since a bf16 variance of near-equal values cancels
         group = min(b, self.stddev_group)
-        stddev = out.reshape(group, -1, h, w, c)
+        stddev = out.float().reshape(group, -1, h, w, c)
         stddev = torch.sqrt(stddev.var(0, unbiased=False) + 1e-8)
         stddev = stddev.mean((1, 2, 3)).reshape(-1, 1, 1, 1)
-        out = torch.cat([out, stddev.repeat(group, h, w, 1)], -1)
+        out = torch.cat([out, stddev.repeat(group, h, w, 1).to(out.dtype)], -1)
         out = self.final_conv(out)
         # the reference flattens NCHW
-        return self.final_linear(out.permute(0, 3, 1, 2).reshape(b, -1))
+        return self.final_linear(out.float().permute(0, 3, 1, 2).reshape(b, -1))

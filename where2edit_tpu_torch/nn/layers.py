@@ -24,6 +24,13 @@ keep the reference's ``nn.Sequential`` key layout (``convs.N.0.weight``,
 its bias; the downsampling layers (blur, then a stride-2 conv) and the 1x1
 convs are plain PyTorch. Every kernel call is a twice-differentiable
 autograd Function, so R1 and the path length penalty train through them.
+
+Precision follows the activations, as in the JAX layers: a bf16 input runs
+the layer in bf16 (the kernels' bf16 forms, the up-conv, the blurs and the
+plain convs in bf16) while the parameters stay fp32 and are cast at use,
+and the style MLP, the modulation, demod, the noise and every kernel's
+epilogue stay fp32. ``ToRGB`` keeps its skip chain fp32 (K3 writes fp32
+from a bf16 input).
 """
 
 from __future__ import annotations
@@ -38,7 +45,7 @@ from torch import nn
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
-from where2edit_tpu_torch.kernels.common import plain_epilogue
+from where2edit_tpu_torch.kernels.common import plain_epilogue, upcast
 from where2edit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
@@ -138,7 +145,7 @@ class EqualConv2d(nn.Module):
             return k2.conv3x3(x.contiguous(),
                               self.weight.permute(2, 3, 1, 0).contiguous(),
                               self.scale, bias, act)
-        y = conv2d(x.permute(0, 3, 1, 2), self.weight * self.scale,
+        y = conv2d(x.permute(0, 3, 1, 2), (self.weight * self.scale).to(x.dtype),
                    self.stride, self.padding)
         return plain_epilogue(y.permute(0, 2, 3, 1), None, None, bias, act)
 
@@ -224,23 +231,24 @@ class ModulatedConv2d(nn.Module):
         w2 = (self.scale * w).square().sum((2, 3)) if self.demodulate else None
         return wk, w2
 
-    def prepared_weight(self):
+    def prepared_weight(self, dtype=torch.float32):
         """(``_prepare`` of the current weight, K1's prepared buffer or
-        None), computed once per weight version and device (fixed at
-        inference, so not redone each forward); recomputed on every call
-        when autograd needs a graph through it, and then without K1's
-        buffer (the kernel prepares its weights per call). The buffer
-        (``k1.prepare_weight``: the weights split and tiled for the tensor
-        cores, ~2·9·Cin·Cout floats) exists for a non-upsampling 3x3 conv
-        on CUDA; it is None on the CPU."""
+        None), computed once per weight version, device and compute dtype
+        (fixed at inference, so not redone each forward); recomputed on
+        every call when autograd needs a graph through it, and then without
+        K1's buffer (the kernel prepares its weights per call). The buffer
+        (``k1.prepare_weight``: the weights tiled for the tensor cores of
+        K1's ``dtype`` form, ~2·9·Cin·Cout floats in fp32, 9·Cin·Cout bf16
+        values in bf16) exists for a non-upsampling 3x3 conv on CUDA; it is
+        None on the CPU."""
         weight = self.weight
         if torch.is_grad_enabled() and weight.requires_grad:
             return (*self._prepare(weight[0]), None)
-        key = (weight._version, weight.device, weight.data_ptr())
+        key = (weight._version, weight.device, weight.data_ptr(), dtype)
         if key != self._prepared_key:
             with torch.no_grad():
                 wk, w2 = self._prepare(weight[0])
-                wp = (k1.prepare_weight(wk)
+                wp = (k1.prepare_weight(wk, dtype=dtype)
                       if self.kernel_size == 3 and not self.upsample else None)
                 self._prepared = (wk, w2, wp)
             self._prepared_key = key
@@ -248,22 +256,27 @@ class ModulatedConv2d(nn.Module):
 
     def forward(self, x, style, input_is_stylespace: bool = False, *,
                 noise=None, noise_weight=None, bias=None, act: bool = False,
-                residual=None):
-        """x (B,H,W,Cin); noise (B or 1,H_out,W_out,1); bias (Cout,);
-        residual (B,H_out,W_out,Cout)."""
+                residual=None, out_dtype=None):
+        """x (B,H,W,Cin), fp32 or bf16 (the compute dtype); noise (B or
+        1,H_out,W_out,1); bias (Cout,); residual (B,H_out,W_out,Cout). The
+        output is in x's dtype, or ``out_dtype`` (the 1x1 conv only:
+        ToRGB's fp32 from a bf16 input)."""
         b = x.shape[0]
+        dt = x.dtype
         s = (style.reshape(b, self.in_channel) if input_is_stylespace
              else self.modulation(style))
-        wk, w2, wp = self.prepared_weight()
+        wk, w2, wp = self.prepared_weight(dt)
         demod = None if w2 is None else torch.rsqrt(s.square() @ w2.t() + 1e-8)
         style_eff = (self.scale * s).contiguous()
+        if noise is not None:
+            noise = upcast(noise)  # the epilogue's operands stay fp32
 
         if self.upsample:
-            xm = (x * style_eff[:, None, None, :]).permute(0, 3, 1, 2)
-            out = conv_transpose2d(xm, wk.transpose(0, 1), 2)
+            xm = (x * style_eff.to(dt)[:, None, None, :]).permute(0, 3, 1, 2)
+            out = conv_transpose2d(xm, wk.transpose(0, 1).to(dt), 2)
             out = out.permute(0, 2, 3, 1)
             if demod is not None:
-                out = out * demod[:, None, None, :]
+                out = out * demod.to(dt)[:, None, None, :]
             out = self.blur(out)
             nz = None if noise is None else noise[..., 0]
             return plain_epilogue(out, nz, noise_weight, bias, act, residual), s
@@ -281,7 +294,8 @@ class ModulatedConv2d(nn.Module):
         nz = None if noise is None else noise.reshape(noise.shape[0], p)
         res = None if residual is None else residual.reshape(bsz, p, -1)
         out = k3.modconv1x1(x.reshape(bsz, p, self.in_channel), style_eff,
-                            wk, demod, nz, noise_weight, bias, act, res)
+                            wk, demod, nz, noise_weight, bias, act, res,
+                            out_dtype=out_dtype)
         return out.reshape(bsz, h, wd, self.out_channel), s
 
 
@@ -340,14 +354,16 @@ class StyledConv(nn.Module):
                 raise ValueError("pass noise, or a torch.Generator to draw it")
             up = 2 if self.conv.upsample else 1
             noise = torch.randn(x.shape[0], x.shape[1] * up, x.shape[2] * up, 1,
-                                generator=rng, device=x.device, dtype=x.dtype)
+                                generator=rng, device=x.device)
         return self.conv(x, style, input_is_stylespace, noise=noise,
                          noise_weight=self.noise.weight,
                          bias=self.activate.bias, act=True)
 
 
 class ToRGB(nn.Module):
-    """1x1 modulated conv to RGB + bias + upsampled skip: one K3 call."""
+    """1x1 modulated conv to RGB + bias + upsampled skip: one K3 call. The
+    RGB and the skip chain are fp32 whatever the input's dtype (the JAX
+    ToRGB's default ``rgb_dtype``)."""
 
     def __init__(self, in_channel: int, style_dim: int, upsample: bool = True,
                  blur_kernel: Sequence[int] = (1, 3, 3, 1),
@@ -362,9 +378,10 @@ class ToRGB(nn.Module):
     def forward(self, x, style, skip=None, input_is_stylespace: bool = False):
         residual = None
         if skip is not None:
-            residual = self.upsample(skip).contiguous()
+            residual = self.upsample(upcast(skip)).contiguous()
         return self.conv(x, style, input_is_stylespace,
-                         bias=self.bias.view(3), residual=residual)
+                         bias=self.bias.view(3), residual=residual,
+                         out_dtype=torch.promote_types(x.dtype, torch.float32))
 
 
 class ConvLayer(nn.Sequential):

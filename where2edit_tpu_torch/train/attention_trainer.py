@@ -42,6 +42,7 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from where2edit_tpu_torch.demo.api import synthesize_edit
 from where2edit_tpu_torch.editing.attention_mappers import tap_controls
@@ -66,6 +67,7 @@ class AttentionTrainConfig:
     work_in_stylespace: bool = False
     freeze_attention_until: float = 1.15   # reference quirk: never unfreezes
     seed: int = 200
+    remat: bool = False  # recompute the grad-pass synthesis in the backward pass
 
 
 class Draws(NamedTuple):
@@ -246,7 +248,15 @@ class AttentionTrainer:
         return latent + mo.latents, mo
 
     def synthesize(self, new_latents, amap, feats) -> torch.Tensor:
-        """The edit synthesis, blended at the attention layer."""
+        """The edit synthesis, blended at the attention layer; with
+        ``cfg.remat`` its activations are recomputed in the backward pass
+        instead of kept (the same numbers, one more forward)."""
+        if self.cfg.remat:
+            return checkpoint(self._synthesize, new_latents, amap, feats,
+                              use_reentrant=False)
+        return self._synthesize(new_latents, amap, feats)
+
+    def _synthesize(self, new_latents, amap, feats) -> torch.Tensor:
         return synthesize_edit(generator=self.generator, new_latents=new_latents,
                                attention_map=amap, feature_map=feats,
                                attention_layer=self.cfg.attention_layer,

@@ -1,4 +1,4 @@
-"""StyleGAN2 adversarial training on one card, fp32 (counterpart of
+"""StyleGAN2 adversarial training on one card (counterpart of
 where2edit_tpu/train/gan_trainer.py).
 
 The standard StyleGAN2 objective: non-saturating logistic losses, lazy R1
@@ -17,6 +17,19 @@ noise, the path-length noise) comes from one ``torch.Generator`` on the
 trainer's device; each program has a ``*_with`` form that takes its draws
 explicitly (the tests feed both packages the same numbers) and one that
 draws them.
+
+Precision and memory levers, as the JAX trainer's: ``bf16`` synthesises in
+bf16 and ``d_bf16`` runs the discriminator's tower in bf16 (the kernels'
+bf16 forms; the losses, R1, the path penalty, the parameters, Adam's state
+and the EMA stay fp32); ``remat`` recomputes the G program's synthesis in
+its backward pass and ``d_remat`` each discriminator ``ResBlock``
+(``torch.utils.checkpoint``); ``d_microbatch`` and ``g_microbatch`` run the
+D and R1 programs, and the G program, over chunks of that many samples
+with the mean of the chunk losses and gradients (the minibatch-stddev
+groups per chunk, the reference's per-GPU semantics; the G chunks slice
+one full-batch draw, so they see the latents the whole batch would; the
+noise too is sliced from one full-batch draw, where the JAX trainer draws
+each chunk's noise from a key of its own).
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from where2edit_tpu_torch import resolve_device
 from where2edit_tpu_torch.models.stylegan2 import Discriminator, Generator
@@ -47,6 +61,14 @@ class GANTrainConfig:
     mixing: float = 0.9           # style-mixing probability
     ema_kimg: float = 10.0        # EMA half-life in thousands of images
     channel_multiplier: int = 2
+    bf16: bool = False            # bf16 synthesis (fp32 losses)
+    remat: bool = False           # recompute the G program's synthesis
+    d_bf16: bool = False          # bf16 discriminator tower (fp32 stddev,
+    #                               losses)
+    d_remat: bool = False         # recompute each D ResBlock
+    d_microbatch: int = 0         # D and R1 over chunks of this many
+    #                               samples (0 = the whole batch)
+    g_microbatch: int = 0         # the G program over chunks likewise
     seed: int = 0
 
 
@@ -93,6 +115,34 @@ class Draws(NamedTuple):
     inject: torch.Tensor
     noise: list
 
+    def chunk(self, n: int) -> list:
+        """The draws of n equal batch chunks (the mixing index shared)."""
+        z1s, z2s = self.z1.chunk(n), self.z2.chunk(n)
+        noises = list(zip(*(nz.chunk(n) for nz in self.noise)))
+        return [Draws(z1s[i], z2s[i], self.inject, list(noises[i]))
+                for i in range(n)]
+
+
+def n_chunks(batch: int, microbatch: int) -> int:
+    """Chunks of ``microbatch`` samples in a batch, as the JAX trainer
+    counts them: 1 unless microbatch divides the batch into several."""
+    if microbatch and 0 < microbatch < batch and batch % microbatch == 0:
+        return batch // microbatch
+    return 1
+
+
+def accumulate(loss_fn, chunks: list) -> torch.Tensor:
+    """The mean of ``loss_fn`` over ``chunks`` (a list of argument tuples),
+    its gradient accumulated into the parameters' ``.grad`` (each chunk's
+    backward before the next chunk's forward, so one chunk's activations
+    live at a time). Returns the mean loss, detached."""
+    total = 0.0
+    for args in chunks:
+        loss = loss_fn(*args) / len(chunks)
+        loss.backward()
+        total = total + loss.detach()
+    return total
+
 
 def _adam(params, lr: float, every: int) -> torch.optim.Adam:
     c = every / (every + 1) if every > 0 else 1.0
@@ -102,16 +152,22 @@ def _adam(params, lr: float, every: int) -> torch.optim.Adam:
 class GANTrainer:
     """Owns G, D, the EMA generator, both optimizers, ``pl_mean`` and the
     draw generator ``rng``. ``step(real)`` runs one iteration on real images
-    (batch, size, size, 3) in [-1, 1] on the trainer's device."""
+    (batch, size, size, 3) in [-1, 1] on the trainer's device. ``g_state``,
+    a generator state dict, replaces G's seeded initial weights (a warm
+    start; the EMA generator starts from it too)."""
 
-    def __init__(self, cfg: GANTrainConfig, device=None):
+    def __init__(self, cfg: GANTrainConfig, device=None, g_state: dict | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         init = torch.Generator().manual_seed(cfg.seed)
         self.g = Generator(cfg.size, channel_multiplier=cfg.channel_multiplier,
-                           rng=init).to(self.device)
-        self.d = Discriminator(cfg.size, cfg.channel_multiplier,
-                               rng=init).to(self.device)
+                           rng=init, dtype=torch.bfloat16 if cfg.bf16
+                           else torch.float32).to(self.device)
+        self.d = Discriminator(cfg.size, cfg.channel_multiplier, rng=init,
+                               dtype=torch.bfloat16 if cfg.d_bf16 else torch.float32,
+                               remat=cfg.d_remat).to(self.device)
+        if g_state is not None:
+            self.g.load_state_dict(g_state)
         self.g_ema = copy.deepcopy(self.g).requires_grad_(False)
         self.g_opt = _adam(self.g.parameters(), cfg.lr, cfg.g_reg_every)
         self.d_opt = _adam(self.d.parameters(), cfg.lr, cfg.d_reg_every)
@@ -134,42 +190,56 @@ class GANTrainer:
                  for i in range(g.num_layers)]
         return Draws(z1, z2, inject, noise)
 
-    def synthesize(self, draws: Draws):
-        """(image, W+) of the generator from ``draws``, style-mixed."""
+    def synthesize(self, draws: Draws, remat: bool = False):
+        """(image, W+) of the generator from ``draws``, style-mixed; with
+        ``remat`` the synthesis from W+ keeps no activations for its
+        backward pass but recomputes them there."""
         g = self.g
         wplus = g.mix_latents(g.style_mlp(draws.z1), g.style_mlp(draws.z2),
                               draws.inject)
-        return g([wplus], input_is_latent=True, noise=draws.noise).image, wplus
+        if remat:
+            img = checkpoint(self._synthesis, wplus, *draws.noise, use_reentrant=False)
+        else:
+            img = self._synthesis(wplus, *draws.noise)
+        return img, wplus
+
+    def _synthesis(self, wplus: torch.Tensor, *noise: torch.Tensor) -> torch.Tensor:
+        return self.g([wplus], input_is_latent=True, noise=list(noise)).image
 
     # -------------------------------------------------------------- programs
     def d_step_with(self, real: torch.Tensor, draws: Draws) -> torch.Tensor:
         with torch.no_grad():
             fake, _ = self.synthesize(draws)
-        loss = logistic_d_loss(self.d(real), self.d(fake))
+        n = n_chunks(self.cfg.batch_size, self.cfg.d_microbatch)
         self.d_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        loss = accumulate(lambda r, f: logistic_d_loss(self.d(r), self.d(f)),
+                          list(zip(real.chunk(n), fake.chunk(n))))
         self.d_opt.step()
-        return loss.detach()
+        return loss
 
     def r1_step(self, real: torch.Tensor) -> torch.Tensor:
         # lazy cadence: applied every d_reg_every steps, scaled back up
-        loss = self.cfg.r1 / 2.0 * r1_penalty(self.d, real) * self.cfg.d_reg_every
+        cfg = self.cfg
+        n = n_chunks(cfg.batch_size, cfg.d_microbatch)
         self.d_opt.zero_grad(set_to_none=True)
-        loss.backward()
+        loss = accumulate(lambda r: cfg.r1 / 2.0 * r1_penalty(self.d, r) * cfg.d_reg_every,
+                          [(r,) for r in real.chunk(n)])
         self.d_opt.step()
-        return loss.detach()
+        return loss
 
     def g_step_with(self, draws: Draws) -> torch.Tensor:
+        cfg = self.cfg
+        n = n_chunks(cfg.batch_size, cfg.g_microbatch)
         self.d.requires_grad_(False)  # D's weights get no gradient here
         try:
-            fake, _ = self.synthesize(draws)
-            loss = logistic_g_loss(self.d(fake))
             self.g_opt.zero_grad(set_to_none=True)
-            loss.backward()
+            loss = accumulate(
+                lambda d: logistic_g_loss(self.d(self.synthesize(d, remat=cfg.remat)[0])),
+                [(d,) for d in draws.chunk(n)])
         finally:
             self.d.requires_grad_(True)
         self.g_opt.step()
-        return loss.detach()
+        return loss
 
     def path_step_with(self, draws: Draws, pl_noise: torch.Tensor):
         """Returns (loss, mean path length); updates ``pl_mean``."""
