@@ -223,7 +223,30 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    ``cudnn.deterministic``: one GAN iteration, one mapper step, one coach
    step; loss terms rel <= 1e-2, whole-model gradient rel L2 <= 5e-2, the
    GAN's image rel <= 1e-2.
-18. the ``kernels`` summary line (K1, K2, K3 and their bf16 forms), then
+18. dp — data parallelism (``where2edit_tpu_torch/parallel/``) at world
+   size 1 over NCCL, in this process, under ``cudnn.deterministic`` (but
+   the fp32 GAN pair: cuDNN's deterministic fp32 input gradient of the
+   strided convs is too slow at 1024²): each
+   of the five CLIs with ``--dp 1`` (``--use_mesh`` for
+   ``cli/mapper_train.py``) against the same run without a group, each
+   run under ``torch.profiler`` with the launch counters set to 0 just
+   before: ``train_stylegan`` at 1024², batch 8, 3 iterations with R1 and
+   path length at 0 and 2, in fp32 and with ``--bf16 --d_bf16`` (the step
+   lines it prints, every iteration's metrics and the final checkpoint's
+   G, D, G_ema and ``pl_mean``), ``run_attention`` (1024², batch 8, 2
+   steps: every logged loss), ``run_clustering`` (1024², layer 13, batch 2,
+   1 step: the centres), ``evaluate edits`` (batch 2, 2 iterations: the
+   JSON result) and ``mapper_train`` (batch 2, 2 steps: the logged losses
+   and the final mapper). Expected bitwise (the average divides by 1, the
+   draws are the same); the fp32 GAN pair, on cuDNN's atomic sums, runs a
+   second time without the group, whose spread must be there and bound the
+   group's (``DP_SPREAD``), with the weights within 5·lr. The same K1/K2/K3 launches with and without the group
+   (nothing gives way to a plain version), and none in fp32 in the bf16
+   run. Per path: ms per iteration with and without the group, the NCCL
+   kernels' device ms and launches per iteration, the device events the
+   group adds. With more than one card, also ``train_stylegan --dp
+   count`` against ``--dp 0`` (weights within 5·lr, ``pl_mean`` 1e-6).
+19. the ``kernels`` summary line (K1, K2, K3 and their bf16 forms), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -241,6 +264,7 @@ import json
 import math
 import os
 import random
+import re
 import shutil
 import statistics
 import subprocess
@@ -3670,6 +3694,374 @@ def phase_bf16_whole(card: str, work: str) -> None:
           f"17d: bf16 launches {launched}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: data parallelism (parallel/) at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+DP_ITERS = 3
+DP_TRAIN_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier", "2",
+                 "--batch", "8", "--iter", str(DP_ITERS), "--seed", "0",
+                 "--save_every", "0", "--sample_every", "0", "--d_reg_every", "2",
+                 "--g_reg_every", "2"]
+DP_LOSS_REL_TOL = 1e-6  # where a deterministic run is not bitwise
+# The fp32 GAN pair runs on cuDNN's default algorithms (see phase_dp), whose
+# atomic sums make two runs of one program differ in the last bits; Adam
+# with b1 = 0 then moves a weight whose gradient is such a difference away
+# from 0 by up to ~lr, and the next iterations' losses move with it (0.7 %
+# of the path penalty by iteration 2 between two runs without a group). So
+# a second run without the group measures the card's own spread, which must
+# be there (else the group, not the card, moved the numbers); the group's
+# run is held to iteration 0's d_loss (forward only, from the same state)
+# at DP_LOSS_REL_TOL, every metric within DP_SPREAD times that spread, and
+# the weights at 5·lr (the JAX suite's bar for its sharded step,
+# tests/test_gan_training.py:322-333).
+DP_SPREAD, DP_WEIGHT_ATOL = 10.0, 5 * 0.002
+
+
+class DpProbe:
+    """The ``span`` of any of the five CLIs: each stage fenced by
+    ``torch.cuda.synchronize`` and timed; the stage ``last`` closes an
+    iteration (its ms: the stages' since the last close), and where the
+    span's owner keeps a ``metrics`` dict (the GAN trainer) its values are
+    kept per iteration. Stages in ``skip`` are not timed."""
+
+    def __init__(self, last: str, skip: tuple = ()):
+        self.last, self.skip = last, skip
+        self.iter_ms, self.metrics, self._acc = [], [], 0.0
+
+    def __call__(self, stage, *owner):
+        return self._span(stage, owner[0] if owner else None)
+
+    @contextlib.contextmanager
+    def _span(self, stage, owner):
+        sync()
+        t0 = time.perf_counter()
+        yield
+        sync()
+        if stage in self.skip:
+            return
+        self._acc += (time.perf_counter() - t0) * 1e3
+        if stage == self.last:
+            self.iter_ms.append(self._acc)
+            self._acc = 0.0
+            if isinstance(getattr(owner, "metrics", None), dict):
+                self.metrics.append({k: float(v) for k, v in owner.metrics.items()})
+
+
+def dp_call(fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` (device activity only) with the
+    launch counters set to 0 just before and read just after. Returns (its value, {wall_ms, device
+    events, NCCL kernels and their device ms by name}, launch forms)."""
+    from torch.profiler import ProfilerActivity, profile  # noqa: PLC0415
+
+    zero_counters()
+    sync()
+    activity = ProfilerActivity.CUDA if DEV == "cuda" else ProfilerActivity.CPU
+    with profile(activities=[activity]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    forms = launch_forms()
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    nccl = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if "nccl" in e.name.lower():
+            nccl[e.name[:80]][0] += (e.time_range.end - e.time_range.start) / 1e3
+            nccl[e.name[:80]][1] += 1
+    return out, {"wall_ms": wall_ms, "device_events": len(events),
+                 "nccl_launches": sum(n for _, n in nccl.values()),
+                 "nccl_device_ms": sum(ms for ms, _ in nccl.values()),
+                 "nccl_by_kernel": {k: {"ms": v[0], "launches": v[1]}
+                                    for k, v in nccl.items()}}, forms
+
+
+def dp_pair(name: str, run, last: str, iterations: int, skip: tuple = ()) -> dict:
+    """``run(flag, probe)`` without the group (flag False: ``--dp 0``) and
+    at world size 1 (True), each under ``dp_call``. Returns the record:
+    both runs' values, probes and profiles, and what the group adds."""
+    rec = {}
+    for flag in (False, True):
+        probe = DpProbe(last, skip)
+        value, prof, forms = dp_call(lambda: run(flag, probe))  # noqa: B023
+        rec[flag] = {"value": value, "probe": probe, "prof": prof, "forms": forms}
+    base, grp = rec[False], rec[True]
+    rec["failed"] = []
+    dp_check(rec, grp["forms"] == base["forms"], f"{name}: kernel launches in the group "
+                                         f"{grp['forms']}, without {base['forms']}")
+    dp_check(rec, sum(f["fp32"] + f["bf16"] for f in grp["forms"].values()) > 0,
+          f"{name}: no kernel launched")
+    dp_check(rec, base["prof"]["nccl_launches"] == 0, f"{name}: NCCL kernels without a group")
+
+    def per_iter(p):
+        steady = p.iter_ms[1:] or p.iter_ms  # iteration 0 builds cuDNN plans
+        return statistics.mean(steady) / (iterations if last == "collect" else 1)
+
+    rec["summary"] = {
+        "path": name, "iterations": iterations,
+        "ms_per_iteration": {"dp0": per_iter(base["probe"]), "dp1": per_iter(grp["probe"])},
+        "iteration_ms": {"dp0": base["probe"].iter_ms, "dp1": grp["probe"].iter_ms},
+        "wall_ms": {"dp0": base["prof"]["wall_ms"], "dp1": grp["prof"]["wall_ms"]},
+        "nccl_device_ms_per_iteration": grp["prof"]["nccl_device_ms"] / iterations,
+        "nccl_launches_per_iteration": grp["prof"]["nccl_launches"] / iterations,
+        "nccl_by_kernel": grp["prof"]["nccl_by_kernel"],
+        "device_events_added_per_iteration":
+            (grp["prof"]["device_events"] - base["prof"]["device_events"]) / iterations,
+        "kernel_launches": grp["forms"]}
+    return rec
+
+
+def dp_check(rec: dict, cond: bool, what: str) -> None:
+    """A check of phase 18, failed after the path's line is printed."""
+    if not cond:
+        rec["failed"].append(what)
+
+
+def same_state(a: dict, b: dict) -> tuple:
+    """(bitwise, max |Δ|) over the tensors of two state dicts."""
+    bitwise, worst = True, 0.0
+    for k, v in a.items():
+        if torch.is_tensor(v) and v.is_floating_point():
+            bitwise &= torch.equal(v, b[k])
+            worst = max(worst, float((v.float() - b[k].float()).abs().max()))
+    return bitwise, worst
+
+
+def rel_diff(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def dp_train(work: str, bf16: bool) -> dict:
+    """Item 1: ``cli/train_stylegan.py`` at 1024², batch 8, 3 iterations (R1
+    and path length at 0 and 2), ``--dp 1`` against ``--dp 0``: the
+    printed lines (their images/s aside), every iteration's metrics and the
+    final checkpoint's G, D, G_ema and ``pl_mean``."""
+    flags = ["--bf16", "--d_bf16"] if bf16 else []
+    import io  # noqa: PLC0415
+
+    def run(flag, probe):
+        out = os.path.join(work, f"dp_train_{int(bf16)}_{int(flag)}")
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            trainer = train_stylegan.main([*DP_TRAIN_ARGS, *flags, "--results_dir", out,
+                                           "--device", DEV,
+                                           *(["--dp", "1"] if flag else [])], span=probe)
+        lines = [line.split(" (")[0] for line in buf.getvalue().splitlines()
+                 if re.match(r"\[\d+\] ", line)]  # the step lines
+        check(os.path.isfile(os.path.join(out, f"ckpt_{DP_ITERS:07d}.pt")),
+              "train: no final checkpoint")
+        shutil.rmtree(out)
+        # the final checkpoint's G, D, G_ema and pl_mean, from the trainer
+        state = {m: {k: v.detach().cpu().clone() for k, v in
+                     getattr(trainer, m).state_dict().items()} for m in ("g", "d", "g_ema")}
+        return lines, {**state, "pl_mean": trainer.pl_mean.cpu()}
+
+    rec = dp_pair("train_bf16" if bf16 else "train", run, "ema", DP_ITERS)
+    (lines0, ck0), (lines1, ck1) = rec[False]["value"], rec[True]["value"]
+    m0, m1 = rec[False]["probe"].metrics, rec[True]["probe"].metrics
+    dp_check(rec, len(m0) == len(m1) == DP_ITERS and len(lines0) == len(lines1) > 0,
+          f"train: metrics {m0} / {m1}, printed {lines0} / {lines1}")
+    bitwise = m0 == m1 and lines0 == lines1
+    worst_metric = max(rel_diff(a[k], b[k]) for a, b in zip(m1, m0) for k in b)
+    parts = {}
+    for part in ("g", "d", "g_ema"):
+        parts[part] = same_state(ck1[part], ck0[part])
+        bitwise &= parts[part][0]
+    bitwise &= torch.equal(ck1["pl_mean"], ck0["pl_mean"])
+    control = None
+    if not bitwise:  # a second run without the group: the card's own spread
+        probe = DpProbe("ema")
+        _, ckc = run(False, probe)
+        control = {"metrics_max_rel": max(rel_diff(a[k], b[k]) for a, b in
+                                          zip(probe.metrics, m0) for k in b),
+                   "weights_max_abs": {p: same_state(ckc[p], ck0[p])[1]
+                                       for p in ("g", "d", "g_ema")}}
+        dp_check(rec, probe.metrics != m0 or any(control["weights_max_abs"].values()),
+                 "train: two runs without the group agree bitwise, the group's does not")
+        dp_check(rec, rel_diff(m1[0]["d_loss"], m0[0]["d_loss"]) <= DP_LOSS_REL_TOL,
+                 f"train: iteration 0 d_loss {m1[0]} / {m0[0]}")
+        dp_check(rec, worst_metric <= DP_SPREAD * control["metrics_max_rel"] + DP_LOSS_REL_TOL,
+                 f"train: metrics rel {worst_metric}, two runs without the group "
+                 f"{control['metrics_max_rel']}")
+        dp_check(rec, all(w <= DP_WEIGHT_ATOL for _, w in parts.values()),
+                 f"train: weights {parts}")
+    rec["summary"].update({"bf16": bf16, "bitwise": bool(bitwise), "control": control,
+                           "metrics_max_rel": worst_metric,
+                           "weights_max_abs": {k: v[1] for k, v in parts.items()},
+                           "printed": lines1, "losses": m1})
+    return rec
+
+
+def dp_attention(work: str, cluster_path: str) -> dict:
+    """Item 2: ``cli/run_attention.py`` (the production S-space mapper) at
+    1024², batch 8, 2 steps: every logged loss term, ``--dp 1`` against
+    ``--dp 0``."""
+    def run(flag, probe):
+        out = os.path.join(work, f"dp_attention_{int(flag)}")
+        run_attention.main(["--stylegan_size", str(SIZE), "--work_in_stylespace",
+                            "--use_cluster", "--cluster_path", cluster_path,
+                            "--cluster_layer", str(CLUSTER_LAYER), "--batch_size", "8",
+                            "--step", "2",
+                            "--save_intermediate_image_every", "0", "--device", DEV,
+                            "--results_dir", out, *(["--dp", "1"] if flag else [])],
+                           span=probe)
+        (log_dir,) = glob.glob(os.path.join(out, "logs", "*"))
+        rows = [(r["tag"], r["step"], r["value"]) for r in read_scalars(log_dir)]
+        shutil.rmtree(out)
+        return rows
+
+    rec = dp_pair("attention", run, "adam", 2)
+    a, b = rec[True]["value"], rec[False]["value"]
+    dp_check(rec, len(a) == len(b) > 0 and [r[:2] for r in a] == [r[:2] for r in b],
+          "attention: logged terms differ")
+    worst = max(rel_diff(x[2], y[2]) for x, y in zip(a, b))
+    dp_check(rec, a == b or worst <= DP_LOSS_REL_TOL, f"attention: losses rel {worst}")
+    rec["summary"].update({"bitwise": a == b, "losses_max_rel": worst,
+                           "losses": {f"{t}@{s}": v for t, s, v in a}})
+    return rec
+
+
+def dp_cluster(work: str) -> tuple:
+    """Item 3a: ``cli/run_clustering.py`` at 1024² (layer 13, batch 2, 1
+    step): the centres, ``--dp 1`` against ``--dp 0``. Returns (the record,
+    the ``--dp 0`` pickle's path)."""
+    def run(flag, probe):
+        out = os.path.join(work, f"dp_cluster_{int(flag)}")
+        path = run_clustering.main(["--stylegan_size", str(SIZE), "--attention_layer",
+                                    str(CLUSTER_LAYER), "--batch_size", "2", "--step", "1",
+                                    "--device", DEV, "--results_dir", out,
+                                    *(["--dp", "1"] if flag else [])], span=probe)
+        return path, load_cluster_centers(path)
+
+    rec = dp_pair("cluster", run, "collect", 1)
+    c1, c0 = rec[True]["value"][1], rec[False]["value"][1]
+    dp_check(rec, c1.shape == c0.shape and bool(np.isfinite(c1).all()), f"centres {c1.shape}")
+    bitwise = bool(np.array_equal(c1, c0))
+    worst = float(np.abs(c1 - c0).max() / max(np.abs(c0).max(), 1e-30))
+    dp_check(rec, bitwise or worst <= DP_LOSS_REL_TOL, f"cluster: centres rel {worst}")
+    rec["summary"].update({"bitwise": bitwise, "centres_max_rel": worst,
+                           "centres_shape": list(c1.shape)})
+    return rec, rec[False]["value"][0]
+
+
+def dp_evaluate(work: str) -> dict:
+    """Item 3b: ``cli/evaluate.py edits`` at 1024² (layer 13), batch 2, 2
+    iterations (FID on CLIP image features): the JSON result, ``--dp 1``
+    against ``--dp 0``."""
+    def run(flag, probe):
+        return evaluate.main(["edits", "--stylegan_size", str(SIZE), "--attention_layer",
+                              str(ATTENTION_LAYER), "--cluster_layer", str(ATTENTION_LAYER),
+                              "--iterations", "2", "--batch", "2", "--device", DEV,
+                              "--description_dir", os.path.join(work, "no-captions"),
+                              *(["--dp", "1"] if flag else [])], span=probe)
+
+    rec = dp_pair("evaluate", run, "inception", 2)
+    r1, r0 = rec[True]["value"], rec[False]["value"]
+    dp_check(rec, set(r1) == set(r0) == {"clip_improvement", "fid_features", "n"}
+          and r1["n"] == r0["n"] == 4, f"evaluate: {r1} / {r0}")
+    worst = max(rel_diff(float(r1[k]), float(r0[k])) for k in r0)
+    dp_check(rec, r1 == r0 or worst <= DP_LOSS_REL_TOL, f"evaluate: {r1} / {r0}")
+    rec["summary"].update({"bitwise": r1 == r0, "result_max_rel": worst, "result": r1})
+    return rec
+
+
+def dp_styleclip(work: str) -> dict:
+    """Item 4: ``cli/mapper_train.py`` (``LevelsMapper``) at 1024², batch 2,
+    2 coach steps (CLIP and latent L2; no ArcFace file), ``--use_mesh``
+    against the same without: every logged loss and the final mapper."""
+    def run(flag, probe):
+        exp = os.path.join(work, f"dp_styleclip_{int(flag)}")
+        mapper_train.main([
+            "--stylegan_size", str(SIZE), "--description", "a person with purple hair",
+            "--batch_size", "2", "--test_batch_size", "1", "--train_dataset_size", "4",
+            "--test_dataset_size", "1", "--board_interval", "1", "--max_steps", "1",
+            "--device", DEV, "--exp_dir", exp, *(["--use_mesh"] if flag else [])],
+            span=probe)
+        rows = [(r["tag"], r["step"], r["value"]) for r in read_scalars(
+            os.path.join(exp, "logs")) if not r["tag"].endswith("step_time")]
+        state = torch.load(os.path.join(exp, "checkpoints", "iteration_1.pt"),
+                           map_location="cpu", weights_only=True)["state_dict"]
+        shutil.rmtree(exp)
+        return rows, state
+
+    rec = dp_pair("styleclip", run, "optim", 2, skip=("sample", "validate"))
+    (a, sa), (b, sb) = rec[True]["value"], rec[False]["value"]
+    dp_check(rec, len(a) == len(b) > 0 and [r[:2] for r in a] == [r[:2] for r in b],
+          "styleclip: logged terms differ")
+    worst = max(rel_diff(x[2], y[2]) for x, y in zip(a, b))
+    mapper_bitwise, mapper_abs = same_state(sa, sb)
+    dp_check(rec, (a == b and mapper_bitwise) or worst <= DP_LOSS_REL_TOL,
+          f"styleclip: losses rel {worst}, mapper max |Δ| {mapper_abs}")
+    rec["summary"].update({"bitwise": a == b and mapper_bitwise, "losses_max_rel": worst,
+                           "mapper_max_abs": mapper_abs})
+    return rec
+
+
+def dp_multi_card(work: str) -> dict:
+    """Item 6, only with more than one card: ``cli/train_stylegan.py --dp
+    count`` (spawned ranks, one per card) against ``--dp 0``: the final
+    G, D and G_ema at 5·lr and ``pl_mean`` at 1e-6 (the CPU test's bars)."""
+    n = torch.cuda.device_count()
+    ckpts = {}
+    for dp in (0, n):
+        out = os.path.join(work, f"dp_multi_{dp}")
+        train_stylegan.main([*DP_TRAIN_ARGS, "--results_dir", out, "--dp", str(dp)])
+        ckpts[dp] = torch.load(os.path.join(out, f"ckpt_{DP_ITERS:07d}.pt"),
+                               map_location="cpu", weights_only=True)
+        shutil.rmtree(out)
+    worst = {p: same_state(ckpts[n][p], ckpts[0][p])[1] for p in ("g", "d", "g_ema")}
+    pl = rel_diff(float(ckpts[n]["pl_mean"]), float(ckpts[0]["pl_mean"]))
+    check(all(w <= 5 * 0.002 for w in worst.values()) and pl <= 1e-6,
+          f"--dp {n}: weights {worst}, pl_mean rel {pl}")
+    return {"world": n, "weights_max_abs": worst, "pl_mean_rel": pl}
+
+
+def phase_dp(card: str, work: str) -> dict:
+    """18: each of the five CLIs at world size 1 over NCCL (``--dp 1``;
+    ``--use_mesh`` for ``mapper_train``, which spans the one card) against
+    the same run without a group, under ``cudnn.deterministic`` but the fp32
+    GAN pair (``DP_SPREAD``); on a machine with more cards, the GAN trainer
+    at world size ``count`` too.
+    Returns {path: launch forms} of the runs in the group."""
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        # under cudnn.deterministic cuDNN gives the 1024² fp32 trainer's
+        # strided 3x3 input gradients and transposed convs dgrad2d_alg1_1,
+        # with which (and with its autotuner) the pair outlasts the run's
+        # time limit: the fp32 pair runs on the default algorithms
+        torch.backends.cudnn.deterministic = False
+        recs = {"train": dp_train(work, False)}
+        torch.backends.cudnn.deterministic = True
+        recs["train_bf16"] = dp_train(work, True)
+        recs["cluster"], cluster_path = dp_cluster(work)
+        recs["attention"] = dp_attention(work, cluster_path)
+        recs["evaluate"] = dp_evaluate(work)
+        if torch.cuda.device_count() == 1:  # --use_mesh spans every card
+            recs["styleclip"] = dp_styleclip(work)
+        multi = dp_multi_card(work) if torch.cuda.device_count() > 1 else None
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    forms = recs["train_bf16"][True]["forms"]
+    dp_check(recs["train_bf16"], all(f["fp32"] == 0 for f in forms.values()),
+             f"train_bf16: fp32 kernel forms launched: {forms}")
+    for rec in recs.values():
+        emit({"phase": "dp", "card": card, "world": 1, "backend": "nccl",
+              **rec["summary"], "failed": rec["failed"]})
+    for rec in recs.values():
+        check(not rec["failed"], f"dp {rec['summary']['path']}: {rec['failed']}")
+    emit({"phase": "dp_summary", "card": card, "world": 1,
+          "paths": {k: {"bitwise": r["summary"]["bitwise"],
+                        "ms_per_iteration": r["summary"]["ms_per_iteration"],
+                        "nccl_device_ms_per_iteration":
+                            r["summary"]["nccl_device_ms_per_iteration"],
+                        "device_events_added_per_iteration":
+                            r["summary"]["device_events_added_per_iteration"]}
+                    for k, r in recs.items()},
+          "multi_card": multi or "not run: one card"})
+    return {k: r[True]["forms"] for k, r in recs.items()}
+
+
 def main(argv=None) -> None:
     global _out_file
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3729,6 +4121,10 @@ def main(argv=None) -> None:
             phase_styleclip_whole(card, work)
             bf16_launches["styleclip_bf16"] = phase_styleclip_bf16(card, work)
             phase_bf16_whole(card, work)
+            dp_launches = phase_dp(card, work)
+            dp_bf16 = dp_launches.pop("train_bf16")
+            bf16_launches["dp_train_bf16"] = {name: dp_bf16[name]["bf16"]
+                                              for name in KERNEL_NAMES}
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -3760,7 +4156,8 @@ def main(argv=None) -> None:
                    "attention": attention_run[name], "mapper_load": load_launches[name],
                    "wplus_train": wplus_train_launches[name],
                    **{path: got[name] for path, got in eval_launches.items()},
-                   **{path: got[name] for path, got in styleclip.items()}}
+                   **{path: got[name] for path, got in styleclip.items()},
+                   **{f"dp_{path}": got[name]["fp32"] for path, got in dp_launches.items()}}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -3809,7 +4206,8 @@ def main(argv=None) -> None:
                     "which styleclip_backward_launches inside backward "
                     "passes, and 16b styleclip_stylespace) and "
                     "cli/mapper_inference.py's run (phase 16c "
-                    "styleclip_inference)"})
+                    "styleclip_inference), and phase 18's runs of the five CLIs in "
+                    "a data-parallel group of one (dp_*)"})
     for name, (src, replaces) in sources.items():
         tot = totals_bf16[BF16_NAMES[name]]
         by_path = {path: got[name] for path, got in bf16_launches.items()}
@@ -3841,7 +4239,9 @@ def main(argv=None) -> None:
                        else "the fp32 FMA rate")
                     + "; library_ms: cuDNN F.conv2d (K3: the einsum) in bf16 plus the "
                     "epilogue; launches: the bf16 trainer runs (phases 17a train_bf16, "
-                    "17b train_levers, 17c attention_bf16 and styleclip_bf16)"})
+                    "17b train_levers, 17c attention_bf16 and styleclip_bf16) and the "
+                    "bf16 GAN run in a data-parallel group of one (phase 18, "
+                    "dp_train_bf16)"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

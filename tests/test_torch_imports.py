@@ -54,6 +54,9 @@ NEW_MODULES = {  # adversarial training
     "where2edit_tpu_torch.editing.styleclip_mapper", "where2edit_tpu_torch.train.ranger",
     "where2edit_tpu_torch.train.coach", "where2edit_tpu_torch.cli.mapper_train",
     "where2edit_tpu_torch.cli.mapper_inference",
+    # data parallelism over torch.distributed
+    "where2edit_tpu_torch.parallel", "where2edit_tpu_torch.parallel.dist",
+    "where2edit_tpu_torch.parallel.collectives",
 }
 
 

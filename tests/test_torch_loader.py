@@ -1,8 +1,10 @@
 """The port's asynchronous real-image pipeline (train/loader.py) against
 ``ImageBank.sample`` and against the JAX package's ``PrefetchLoader`` on
 the same images and seeds: with hflip off its stream is bit for bit a loop
-of ``bank.sample(rng, batch)``; with and without hflip it gives the JAX
-loader's batches; ``close()`` (and leaving the context) joins the producer
+of ``bank.sample(rng, batch)``, and a data-parallel group's ranks' rows
+(``rank``, ``world``) concatenate to it; with and without hflip it gives
+the JAX loader's batches, and the ranks' rows concatenate to the one-process
+batch; ``close()`` (and leaving the context) joins the producer
 thread; a decode failure surfaces on the consumer."""
 
 import numpy as np
@@ -19,6 +21,13 @@ def _images() -> np.ndarray:
     return np.random.default_rng(0).uniform(-1, 1, (N, SIZE, SIZE, 3)).astype(np.float32)
 
 
+def _shards(bank, world: int, **kw) -> list:
+    """One loader per rank of a ``world``-rank group, each with the same
+    seeds."""
+    return [PrefetchLoader(bank, BATCH, rng=np.random.default_rng(3), rank=r, world=world,
+                           workers=2, prefetch=2, **kw) for r in range(world)]
+
+
 def test_torch_loader_stream_is_bank_sample():
     bank = ImageBank(images=_images())
     want_rng = np.random.default_rng(3)
@@ -28,6 +37,36 @@ def test_torch_loader_stream_is_bank_sample():
             got = next(loader)
             assert got.dtype == torch.float32 and got.device.type == "cpu"
             assert np.array_equal(got.numpy(), bank.sample(want_rng, BATCH))
+    # two ranks' rows of the same stream
+    want_rng = np.random.default_rng(3)
+    shards = _shards(bank, 2)
+    try:
+        for _ in range(5):
+            rows = [next(s).numpy() for s in shards]
+            assert all(r.shape[0] == BATCH // 2 for r in rows)
+            assert np.array_equal(np.concatenate(rows), bank.sample(want_rng, BATCH))
+    finally:
+        for s in shards:
+            s.close()
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_torch_loader_sharded_rows_concatenate_to_the_batch(world):
+    """With flips on, each rank draws the global index and flip stream and
+    keeps its rows: the ranks' batches concatenate to the one-process
+    batch; a batch that does not split is refused."""
+    bank = ImageBank(images=_images())
+    (whole,) = _shards(bank, 1, hflip=True, flip_seed=4)
+    shards = _shards(bank, world, hflip=True, flip_seed=4)
+    try:
+        for _ in range(4):
+            want = next(whole).numpy()
+            assert np.array_equal(np.concatenate([next(s).numpy() for s in shards]), want)
+    finally:
+        for s in [whole, *shards]:
+            s.close()
+    with pytest.raises(ValueError, match="does not split"):
+        PrefetchLoader(bank, BATCH, rng=np.random.default_rng(0), rank=0, world=3)
 
 
 @pytest.mark.parametrize("hflip", [False, True])

@@ -20,19 +20,24 @@ where2edit_tpu/cli/evaluate.py), two modes:
 Text and image features come from one CLIP (``--clip_ckpt``, else ViT-B/32
 with seeded random weights). Runs on CUDA unless ``--device cpu`` is given
 (and raises without a card). Prints one JSON line and returns the result.
+In ``edits`` mode ``--dp N`` splits each batch of faces over N ranks, one
+process per card (``--device cpu``: N gloo processes); rank 0 gathers the
+feature pools in the one-process order and prints the line. ``iou`` runs in
+one process, as the JAX CLI's.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import json
 import random
 
 import torch
 
 from where2edit_tpu_torch import resolve_device
-from where2edit_tpu_torch.cli.common import load_torch_state
+from where2edit_tpu_torch.cli.common import add_dp_args, dp_entry, load_torch_state
 from where2edit_tpu_torch.cli.run_attention import load_clip
 from where2edit_tpu_torch.demo.app import load_psp, load_session
 from where2edit_tpu_torch.editing.attention_mappers import tap_resolution
@@ -44,6 +49,7 @@ from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.inception import InceptionV3
 from where2edit_tpu_torch.models.irse import Backbone
 from where2edit_tpu_torch.ops.interpolate import interpolate_bilinear
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.corpus import load_corpus
 from where2edit_tpu_torch.train.datasets import CelebAMaskHQ
 
@@ -79,6 +85,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
+    add_dp_args(p, multihost=False)
     return p
 
 
@@ -176,16 +183,25 @@ def main(argv=None, span=None):
     """``span(stage)``, when given, is a context manager around each stage
     (edits: ``text``, ``faces``, ``edit``, ``clip_image``, ``arcface``,
     ``inception``; iou: ``invert``, ``capture``, ``mapper``):
-    ``chip_smoke.py`` fences, times and counts with it."""
+    ``chip_smoke.py`` fences, times and counts with it. Returns None on
+    ranks other than 0, and when ``--dp`` spawned its ranks."""
     args = build_argparser().parse_args(argv)
+    return dp_entry(args, functools.partial(_main, span=span),
+                    dp=args.dp if args.mode == "edits" else 0)
+
+
+def _main(args, span=None):
     span = span or (lambda stage: contextlib.nullcontext())
     rng = random.Random(args.seed)
     session, closs = load_models(args)
     dev = session.device
 
     if args.mode == "edits":
+        # in a group every rank draws the whole batch's faces, keeps its rows
+        wplus_for = (None if not dist.in_group() else lambda seed: dist.rows(
+            session.sample_wplus(seed, args.truncation, batch=args.batch)))
         evaluator = EditEvaluator(
-            edit_fn=make_edit_fn(session, args.truncation, span),
+            edit_fn=make_edit_fn(session, args.truncation, span, wplus_for),
             encode_image=closs.encode_image, encode_text=closs.encode_text,
             id_extract=(load_id_extract(args.ir_se50_weights, dev)
                         if args.ir_se50_weights else None),
@@ -194,7 +210,8 @@ def main(argv=None, span=None):
             span=span)
         seeds = [args.seed * 100_000 + i for i in range(args.iterations)]
         result = evaluator.run(seeds, sweep_prompts(args, rng, dev))
-        print(json.dumps(result, default=float))
+        if result is not None:
+            print(json.dumps(result, default=float))
         return result
 
     # --- iou mode

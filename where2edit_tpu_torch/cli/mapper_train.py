@@ -1,5 +1,5 @@
 """StyleCLIP latent-mapper training CLI (counterpart of
-where2edit_tpu/cli/mapper_train.py), one card.
+where2edit_tpu/cli/mapper_train.py), on one card or data-parallel.
 
 Refuses an existing ``--exp_dir``, writes ``opt.json`` there, builds the
 frozen generator, CLIP (``--clip_ckpt``, else ViT-B/32 with seeded random
@@ -15,23 +15,32 @@ a reference StyleCLIP ``.pt`` (its ``mapper.*`` entries; ``decoder.*`` are
 ignored); ``--resume`` restores a checkpoint of this CLI whole (mapper,
 optimizer, step, shuffle position). SIGTERM leaves a ``preempt.pt``
 snapshot at the next step boundary. ``--bf16`` runs the coach's syntheses
-in bf16 (its losses stay fp32). The JAX CLI's ``--use_mesh`` and
-``--s2d_octaves`` are not here (the first waits for DDP; the last is a TPU
-layout lever).
+in bf16 (its losses stay fp32). ``--use_mesh`` splits each batch over
+every visible card, one process per card (two gloo processes with
+``--device cpu``; ``--batch_size`` must split evenly): rank 0 validates and
+writes the run's files, and a SIGTERM to any rank stops every rank at the
+same step. The JAX CLI's ``--s2d_octaves`` is not here (a TPU layout
+lever).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
-import signal
 
 import numpy as np
 import torch
 
 from where2edit_tpu_torch import resolve_device
-from where2edit_tpu_torch.cli.common import build_generator, load_torch_state, mean_latent
+from where2edit_tpu_torch.cli.common import (
+    Preemption,
+    build_generator,
+    dp_entry,
+    load_torch_state,
+    mean_latent,
+)
 from where2edit_tpu_torch.cli.run_attention import load_clip
 from where2edit_tpu_torch.editing.latent_mappers import stylespace_count
 from where2edit_tpu_torch.editing.styleclip_mapper import MAPPER_TYPES, build_mapper
@@ -40,6 +49,7 @@ from where2edit_tpu_torch.losses.id_loss import IDLoss
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.irse import Backbone
 from where2edit_tpu_torch.models.psp import get_keys
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.checkpoints import load_coach_checkpoint
 from where2edit_tpu_torch.train.coach import Coach, CoachConfig
 
@@ -91,6 +101,9 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="bf16 synthesis during training (losses stay fp32)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
+    p.add_argument("--use_mesh", action="store_true",
+                   help="split each batch over every visible card, one process per "
+                        "card (2 gloo processes with --device cpu)")
     return p
 
 
@@ -107,17 +120,26 @@ def load_latents(path: str | None):
     return None if not path else np.asarray(load_torch_state(path), np.float32)
 
 
-def main(argv=None, span=None) -> Coach:
-    """Returns the trained ``Coach``. ``span(stage, coach)``, when given,
-    is the coach's stage hook: ``chip_smoke.py`` fences, times and counts
-    with it."""
+def main(argv=None, span=None) -> Coach | None:
+    """Returns the trained ``Coach`` (None when ``--use_mesh`` spawned its
+    ranks). ``span(stage, coach)``, when given, is the coach's stage hook:
+    ``chip_smoke.py`` fences, times and counts with it."""
     args = build_argparser().parse_args(argv)
+    return dp_entry(args, functools.partial(_main, span=span), batch_flag="batch_size",
+                    dp=-1 if args.use_mesh else 0)
+
+
+def _main(args, span=None) -> Coach:
     dev = resolve_device(args.device)
-    if os.path.exists(args.exp_dir):
+    exists = os.path.exists(args.exp_dir)
+    dist.barrier()  # every rank looks before rank 0 makes it
+    if exists:
         raise FileExistsError(f"Oops... {args.exp_dir} already exists")
-    os.makedirs(args.exp_dir)
-    with open(os.path.join(args.exp_dir, "opt.json"), "w") as f:
-        json.dump(vars(args), f, indent=4, sort_keys=True)
+    if dist.is_main():
+        os.makedirs(args.exp_dir)
+        with open(os.path.join(args.exp_dir, "opt.json"), "w") as f:
+            json.dump(vars(args), f, indent=4, sort_keys=True)
+    dist.barrier()
 
     gen, latent_avg = build_generator(args.stylegan_size, args.stylegan_weights,
                                       device=dev, dtype=torch.bfloat16 if args.bf16
@@ -168,17 +190,11 @@ def main(argv=None, span=None) -> Coach:
         print(f"resumed from {args.resume}; continuing at step {step}")
 
     # SIGTERM asks for a stop at the next step boundary, then a snapshot
-    stop = {"flag": False}
-
-    def _on_sigterm(signum, frame):
-        stop["flag"] = True
-        print("[preempt] SIGTERM — snapshotting at the next step boundary")
-
-    prev = signal.signal(signal.SIGTERM, _on_sigterm)
     try:
-        result = coach.train(stop_fn=lambda: stop["flag"])
+        with Preemption("[preempt] SIGTERM — snapshotting at the next step "
+                        "boundary") as preempt:
+            result = coach.train(stop_fn=preempt)
     finally:
-        signal.signal(signal.SIGTERM, prev)
         coach.metrics.close()
     if result == "preempted":
         print(f"[preempt] snapshot → "

@@ -1,5 +1,5 @@
 """Phase-2 region-attention training CLI (counterpart of
-where2edit_tpu/cli/run_attention.py), one card.
+where2edit_tpu/cli/run_attention.py), on one card or data-parallel.
 
 Trains a region-attention mapper against CLIP, VGG and InfoNCE with the
 generator frozen. The flags pick it as the JAX CLI does:
@@ -19,6 +19,13 @@ keeping its activations.
         --use_cluster --cluster_path results/k_means_layer_13_10_clusters.pkl \\
         --batch_size 8 --step 300
 
+``--dp N`` trains on N ranks, one process per card (``--device cpu``: N
+gloo processes), ``--batch_size`` the global batch split evenly, with the
+InfoNCE over the gathered global batch (``train/attention_trainer.py``);
+``--multihost`` runs as a rank of ``torchrun``'s group instead. Only rank 0
+writes the run's files; a SIGTERM to any rank stops every rank at the same
+step. The JAX CLI's ``--sp`` (spatial sharding) is not ported.
+
 Runs on CUDA unless ``--device cpu`` is given (and raises without a card).
 Without ``--ckpt`` / ``--clip_ckpt`` / ``--vgg_ckpt`` files the models
 take seeded random weights. The grids are skipped without Pillow.
@@ -28,9 +35,9 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import os
 import random
-import signal
 import sys
 
 import numpy as np
@@ -38,7 +45,10 @@ import torch
 
 from where2edit_tpu_torch import resolve_device
 from where2edit_tpu_torch.cli.common import (
+    Preemption,
+    add_dp_args,
     build_generator,
+    dp_entry,
     load_cluster_centers,
     load_torch_state,
     mean_latent,
@@ -55,6 +65,7 @@ from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
 from where2edit_tpu_torch.models.clip_model import CLIP, clip_from_state_dict
 from where2edit_tpu_torch.models.clip_tokenizer import tokenize
 from where2edit_tpu_torch.models.vgg import Vgg16, load_vgg16_state
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.attention_trainer import (
     AttentionTrainConfig,
     AttentionTrainer,
@@ -93,7 +104,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cluster_layer", type=int, default=13)
     p.add_argument("--cluster_num", type=int, default=10)
     p.add_argument("--batch_size", type=int, default=1,
-                   help="GLOBAL batch (the reference's is per GPU)")
+                   help="GLOBAL batch, split over the --dp ranks (the "
+                        "reference's is per GPU)")
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--lambda_ess", type=float, default=0.6)
     p.add_argument("--lambda_sec", type=float, default=0.6)
@@ -125,6 +137,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=200)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
+    add_dp_args(p)
     return p
 
 
@@ -195,18 +208,24 @@ def build_mapper(args, n_latent: int):
 
 
 def main(argv=None, span=None):
-    """Returns the run's output directory. ``span(stage, trainer)``, when
-    given, is a context manager around each stage of every training step
-    (``AttentionTrainer``'s): ``chip_smoke.py`` fences, times and counts
-    with it."""
+    """Returns the run's output directory (None when ``--dp`` spawned its
+    ranks). ``span(stage, trainer)``, when given, is a context manager
+    around each stage of every training step (``AttentionTrainer``'s):
+    ``chip_smoke.py`` fences, times and counts with it."""
     args = build_argparser().parse_args(argv)
+    return dp_entry(args, functools.partial(_main, span=span), batch_flag="batch_size")
+
+
+def _main(args, span=None):
     dev = resolve_device(args.device)
     rng = set_random_seed(args.seed, dev)
     host_rng = random.Random(args.seed)
 
-    stamp = datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    stamp = dist.broadcast_object(datetime.datetime.now().strftime("%Y-%m-%d-%H-%M-%S"))
     exp_name = args.description.replace(" ", "-") + "-" + stamp
     output_dir = os.path.join(args.results_dir, "outputs", exp_name)
+    if not dist.is_main():
+        return _train(args, dev, rng, host_rng, output_dir, exp_name, span)
     os.makedirs(output_dir, exist_ok=True)
     snapshot_sources(output_dir)
     stdout = sys.stdout
@@ -300,7 +319,9 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         return torch.cat(imgs), torch.cat(amaps)
 
     _, eval_latents, eval_feats = sample_eval(1)
-    video_f = open(os.path.join(output_dir, "video.txt"), "w")  # noqa: SIM115
+    main_rank = dist.is_main()
+    video_f = (open(os.path.join(output_dir, "video.txt"), "w")  # noqa: SIM115
+               if main_rank else None)
 
     def checkpoint(name: str, step: int) -> str:
         return save_mapper_checkpoint(os.path.join(output_dir, name), trainer,
@@ -312,6 +333,8 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         every = args.save_intermediate_image_every
         if every > 0 and (i + 1) % every == 0:
             checkpoint(f"{i + 1:05d}_mapper.pt", i + 1)
+            if not main_rank:
+                return
             if own_text is not None:
                 imgs, amaps = render_sweep(eval_latents, eval_feats, 1)
                 nrow = 1
@@ -326,28 +349,24 @@ def _train(args, dev, rng, host_rng, output_dir, exp_name, span):
         print(f"step {i}: " + "; ".join(f"{k}={v:.4f}" for k, v in scal.items()))
 
     # SIGTERM asks for a stop at the next step boundary, then a snapshot
-    stop = {"flag": False}
-
-    def _on_sigterm(signum, frame):
-        stop["flag"] = True
-        print("[preempt] SIGTERM — snapshotting at the next step boundary")
-
-    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     try:
-        trainer.run(att_bank, log_every=1, callback=callback,
-                    start_step=start_step, stop_fn=lambda: stop["flag"])
+        with Preemption("[preempt] SIGTERM — snapshotting at the next step "
+                        "boundary") as preempt:
+            trainer.run(att_bank, log_every=1, callback=callback,
+                        start_step=start_step, stop_fn=preempt)
+            stopped = preempt()
     finally:
-        signal.signal(signal.SIGTERM, prev_handler)
-        video_f.close()
+        if video_f is not None:
+            video_f.close()
         metrics.close()
 
-    if stop["flag"]:
+    if stopped:
         path = checkpoint("preempt_mapper.pt", trainer.steps_completed)
         print(f"[preempt] snapshot at step {trainer.steps_completed} → {path}")
         return output_dir
     checkpoint("final_mapper.pt", trainer.steps_completed)
 
-    if own_text is not None:
+    if own_text is not None and main_rank:
         # originals row, then one row of edits per own phrase
         n = max(1, min(4, 2 * args.batch_size))
         img0, latents, feats = sample_eval(n)

@@ -10,25 +10,37 @@ channels, bilinear ×2) per face, fits k-means, pickles the centres as
         --attention_layer 13 --cluster_num 10 --batch_size 5 --step 20
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without a card);
-the fit runs on the host (sklearn, else the native C++ Lloyd).
+the fit runs on the host (sklearn, else the native C++ Lloyd). ``--dp N``
+collects the features on N ranks, one process per card (``--device cpu``:
+N gloo processes): each synthesises its rows of every step's batch, and
+rank 0 gathers the matrix in the one-process order, fits, writes the pickle
+and renders the grid.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
 
 import torch
 
 from where2edit_tpu_torch import resolve_device
-from where2edit_tpu_torch.cli.common import build_generator, mean_latent, save_pickle
+from where2edit_tpu_torch.cli.common import (
+    add_dp_args,
+    build_generator,
+    dp_entry,
+    mean_latent,
+    save_pickle,
+)
 from where2edit_tpu_torch.editing.clustering import (
     assign_clusters,
     cluster_features,
     kmeans_fit,
 )
 from where2edit_tpu_torch.ops.interpolate import interpolate_nearest
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.utils.images import save_image_grid
 from where2edit_tpu_torch.utils.seed import set_random_seed
 
@@ -48,6 +60,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--results_dir", type=str, default="results")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
+    add_dp_args(p, multihost=False)
     return p
 
 
@@ -72,10 +85,11 @@ def collect_features(gen, mean_w, rng, *, layer: int, batch: int, steps: int,
                      truncation: float = 0.7) -> torch.Tensor:
     """The clustering matrix of ``steps`` batches of fresh faces, on the
     generator's device: (steps·batch·S·S, C + 2·C/16), S twice the tap's
-    side."""
+    side. In a data-parallel group, this rank's rows of each step's batch
+    (every rank draws the whole batch)."""
     data = None
     for i in range(steps):
-        z = torch.randn(batch, gen.style_dim, generator=rng, device=gen.device)
+        z = dist.rows(torch.randn(batch, gen.style_dim, generator=rng, device=gen.device))
         _, tap = synthesize_tap(gen, truncated_wplus(gen, mean_w, z, truncation),
                                 layer)
         cf = cluster_features(tap, upsample2=True)
@@ -86,9 +100,14 @@ def collect_features(gen, mean_w, rng, *, layer: int, batch: int, steps: int,
 
 
 def main(argv=None, span=None):
-    """Returns the pickle's path. ``span(stage)``, when given, is a context
-    manager around each stage: collect, fit, visualize."""
+    """Returns the pickle's path (None when ``--dp`` spawned its ranks).
+    ``span(stage)``, when given, is a context manager around each stage:
+    collect, fit, visualize."""
     args = build_argparser().parse_args(argv)
+    return dp_entry(args, functools.partial(_main, span=span), batch_flag="batch_size")
+
+
+def _main(args, span=None):
     span = span or (lambda stage: contextlib.nullcontext())
     dev = resolve_device(args.device)
     rng = set_random_seed(args.seed, dev)
@@ -96,18 +115,22 @@ def main(argv=None, span=None):
                              args.channel_multiplier, device=dev)
     mean_w = mean_latent(gen, rng)
 
+    out_path = os.path.join(
+        args.results_dir,
+        f"k_means_layer_{args.attention_layer}_{args.cluster_num}_clusters.pkl")
     with span("collect"):
-        data = collect_features(gen, mean_w, rng, layer=args.attention_layer,
-                                batch=args.batch_size, steps=args.step,
-                                truncation=args.truncation).cpu().numpy()
+        data = dist.gather_rows(
+            collect_features(gen, mean_w, rng, layer=args.attention_layer,
+                             batch=args.batch_size, steps=args.step,
+                             truncation=args.truncation), steps=args.step)
+    if not dist.is_main():
+        return out_path
+    data = data.cpu().numpy()
     print(f"clustering matrix: {data.shape}")
     with span("fit"):
         centers = kmeans_fit(data, args.cluster_num)
 
     os.makedirs(args.results_dir, exist_ok=True)
-    out_path = os.path.join(
-        args.results_dir,
-        f"k_means_layer_{args.attention_layer}_{args.cluster_num}_clusters.pkl")
     save_pickle(centers, out_path)
     print(f"saved centers → {out_path}")
 

@@ -1,10 +1,10 @@
-"""StyleGAN2 adversarial training on one card (counterpart of
-where2edit_tpu/cli/train_stylegan.py).
+"""StyleGAN2 adversarial training, on one card or data-parallel
+(counterpart of where2edit_tpu/cli/train_stylegan.py).
 
     python -m where2edit_tpu_torch.cli.train_stylegan --synthetic 16 \\
         --size 1024 --channel_multiplier 2 --batch 8 --iter 5 \\
         [--bf16 --d_bf16] [--remat --d_remat] [--d_microbatch 4] \\
-        [--g_microbatch 8] [--workers 2 --hflip] [--ckpt g_ema.pt]
+        [--g_microbatch 8] [--workers 2 --hflip] [--ckpt g_ema.pt] [--dp N]
 
 Runs on CUDA unless ``--device cpu`` is given (and raises without a card).
 fp32 by default; ``--bf16``/``--d_bf16`` run the generator's synthesis and
@@ -12,14 +12,22 @@ the discriminator's tower in bf16 (the kernels' bf16 forms; losses,
 regularisers, parameters and Adam stay fp32), ``--remat``/``--d_remat``
 recompute activations in the backward pass instead of keeping them, and
 ``--d_microbatch``/``--g_microbatch`` accumulate the programs over chunks.
-``--workers``/``--hflip`` load the reals on a background pipeline
-(``train/loader.py``), with random horizontal flips. ``--ckpt`` warm-starts
+The reals are loaded on a background pipeline (``train/loader.py``,
+``--workers`` decode threads), with random horizontal flips under
+``--hflip``. ``--ckpt`` warm-starts
 G (and its EMA) from a reference ``.pt``'s ``g_ema``. Writes
 ``ckpt_<step>.pt`` under ``--results_dir`` every ``--save_every`` steps and
 at the end, and an EMA sample grid ``sample_<step>.jpg`` every
 ``--sample_every`` steps; ``--resume`` continues a checkpoint, the draws
 and the real-image and flip streams included, as an uninterrupted run
 would. SIGTERM writes a checkpoint at the next step boundary and exits 0.
+``--dp N`` trains on N ranks, one process per card (``--device cpu``: N
+gloo processes), ``--batch`` the global batch split evenly, and the step is
+the one-process step on the global batch (``train/gan_trainer.py``);
+``--multihost`` runs as a rank of the group ``torchrun`` describes instead
+(``torchrun --nproc_per_node N -m where2edit_tpu_torch.cli.train_stylegan
+--multihost ...``). Only rank 0 logs, samples, scores FID and writes
+checkpoints; a SIGTERM to any rank stops every rank at the same step.
 Scalars go to ``--results_dir``/logs (``train/*`` every 10 steps; with
 ``--fid_every N`` the EMA generator's FID every N steps as ``eval/fid``:
 InceptionV3 pool3 features with ``--inception_ckpt``, else CLIP image
@@ -30,14 +38,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import os
-import signal
 import time
 
 import numpy as np
 import torch
 
+from where2edit_tpu_torch.cli.common import Preemption, add_dp_args, dp_entry
 from where2edit_tpu_torch.eval.metrics import frechet_distance
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.checkpoints import load_checkpoint, save_checkpoint
 from where2edit_tpu_torch.train.datasets import ImageBank
 from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
@@ -62,13 +72,7 @@ def build_fid_extract(args, device):
     return CLIPLoss(load_clip(args.clip_ckpt, device), args.size).encode_image
 
 
-def main(argv=None, span=None):
-    """Returns the trainer after the last step, or None when a SIGTERM
-    stopped the run (after its checkpoint). ``span(program, trainer)``,
-    when given, is a context manager around each training program (d, r1,
-    g, path, ema) and, with ``--fid_every``, around the real pool's
-    features (``fid_reals``) and each FID pass (``fid``): ``chip_smoke.py``
-    fences, times and counts with it."""
+def build_argparser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--data", type=str, default=None,
                    help="image directory | .npy | .npz of reals (N,H,W,3)")
@@ -76,7 +80,8 @@ def main(argv=None, span=None):
                    help="train against N uniform random images instead of --data")
     p.add_argument("--size", type=int, default=1024)
     p.add_argument("--channel_multiplier", type=int, default=2)
-    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--batch", type=int, default=8,
+                   help="global batch (split over the --dp ranks)")
     p.add_argument("--iter", type=int, default=800000)
     p.add_argument("--lr", type=float, default=0.002)
     p.add_argument("--r1", type=float, default=10.0)
@@ -86,9 +91,9 @@ def main(argv=None, span=None):
     p.add_argument("--path_batch_shrink", type=int, default=2)
     p.add_argument("--mixing", type=float, default=0.9)
     p.add_argument("--ema_kimg", type=float, default=10.0)
-    p.add_argument("--workers", type=int, default=0,
-                   help="decode threads of the background real-image pipeline; "
-                        "0 = load each batch in the step")
+    p.add_argument("--workers", type=int, default=1,
+                   help="decode threads of the background real-image pipeline "
+                        "(at least 1)")
     p.add_argument("--prefetch", type=int, default=3,
                    help="batches the background pipeline keeps in flight")
     p.add_argument("--hflip", action="store_true",
@@ -130,8 +135,23 @@ def main(argv=None, span=None):
                    help="checkpoint file written by this CLI")
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default: cuda; cpu runs the plain versions)")
-    args = p.parse_args(argv)
+    add_dp_args(p)
+    return p
 
+
+def main(argv=None, span=None):
+    """Returns the trainer after the last step, or None when a SIGTERM
+    stopped the run (after its checkpoint) or when ``--dp`` spawned its
+    ranks. ``span(program, trainer)``, when given, is a context manager
+    around each training program (d, r1, g, path, ema) and, with
+    ``--fid_every``, around the real pool's features (``fid_reals``) and
+    each FID pass (``fid``): ``chip_smoke.py`` fences, times and counts with
+    it."""
+    args = build_argparser().parse_args(argv)
+    return dp_entry(args, functools.partial(_main, span=span))
+
+
+def _main(args, span=None):
     if args.synthetic:
         rng0 = np.random.default_rng(args.seed)
         bank = ImageBank(images=rng0.uniform(
@@ -174,7 +194,7 @@ def main(argv=None, span=None):
 
     metrics_writer = MetricsWriter(os.path.join(args.results_dir, "logs"))
     fid_span = span or (lambda program, trainer: contextlib.nullcontext())
-    if args.fid_every:
+    if args.fid_every and dist.is_main():
         fid_extract = build_fid_extract(args, trainer.device)
         fb = args.fid_batch or args.batch
         n = max(((args.fid_n + fb - 1) // fb) * fb, fb)  # a multiple of fb
@@ -208,57 +228,49 @@ def main(argv=None, span=None):
         return save_checkpoint(os.path.join(args.results_dir, f"ckpt_{step:07d}.pt"),
                                trainer, step, vars(args))
 
-    loader = None
-    if args.workers > 0 or args.hflip:
-        loader = PrefetchLoader(bank, args.batch, rng=rng, workers=max(args.workers, 1),
-                                prefetch=args.prefetch, hflip=args.hflip,
-                                flip_seed=flip_rng, device=trainer.device)
-        print(f"[loader] {max(args.workers, 1)} decode threads, {args.prefetch} "
-              "batches in flight" + (", hflip" if args.hflip else ""))
+    workers = max(args.workers, 1)
+    loader = PrefetchLoader(bank, args.batch, rng=rng, workers=workers,
+                            prefetch=args.prefetch, hflip=args.hflip,
+                            flip_seed=flip_rng, device=trainer.device,
+                            rank=dist.rank(), world=dist.world())
+    print(f"[loader] {workers} decode threads, {args.prefetch} batches in flight"
+          + (", hflip" if args.hflip else ""))
 
     # SIGTERM asks for a checkpoint at the next step boundary and a clean
     # exit; --resume then continues as an uninterrupted run would
-    stop = {"flag": False}
-
-    def _on_sigterm(signum, frame):
-        stop["flag"] = True
-        print("[preempt] SIGTERM: checkpointing at the next step boundary")
-
-    prev_handler = signal.signal(signal.SIGTERM, _on_sigterm)
     t0 = time.time()
     try:
-        for step in range(start, args.iter):
-            if stop["flag"]:
-                print(f"[preempt] checkpoint -> {checkpoint(step)}")
-                return None
-            real = (next(loader) if loader is not None else
-                    torch.from_numpy(bank.sample(rng, args.batch)).to(trainer.device))
-            m = trainer.step(real, span)
-            if step % 10 == 0:
-                rate = args.batch * (step - start + 1) / (time.time() - t0)
-                m = {k: float(v) for k, v in m.items()}
-                print(f"[{step}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
-                      + f" ({rate:.2f} imgs/s)", flush=True)
-                for k, v in m.items():
-                    metrics_writer.add_scalar(f"train/{k}", v, step)
-            if args.fid_every and (step + 1) % args.fid_every == 0:
-                with fid_span("fid", trainer):
-                    fid = fid_eval()
-                print(f"[{step + 1}] fid={fid:.3f}", flush=True)
-                metrics_writer.add_scalar("eval/fid", fid, step + 1)
-            if args.sample_every and (step + 1) % args.sample_every == 0:
-                with torch.no_grad():
-                    img = trainer.g_ema([sample_z], randomize_noise=False).image
-                save_image_grid(img, os.path.join(args.results_dir,
-                                                  f"sample_{step + 1:07d}.jpg"),
-                                nrow=int(round(args.n_sample ** 0.5)) or 1,
-                                scale_each=True)
-            if args.save_every and (step + 1) % args.save_every == 0:
-                print(f"checkpoint -> {checkpoint(step + 1)}")
+        with Preemption("[preempt] SIGTERM: checkpointing at the next step "
+                        "boundary") as preempt:
+            for step in range(start, args.iter):
+                if preempt():
+                    print(f"[preempt] checkpoint -> {checkpoint(step)}")
+                    return None
+                m = trainer.step(next(loader), span)
+                if step % 10 == 0:
+                    rate = args.batch * (step - start + 1) / (time.time() - t0)
+                    m = {k: float(v) for k, v in m.items()}
+                    print(f"[{step}] " + " ".join(f"{k}={v:.4f}" for k, v in m.items())
+                          + f" ({rate:.2f} imgs/s)", flush=True)
+                    for k, v in m.items():
+                        metrics_writer.add_scalar(f"train/{k}", v, step)
+                if args.fid_every and (step + 1) % args.fid_every == 0 and dist.is_main():
+                    with fid_span("fid", trainer):
+                        fid = fid_eval()
+                    print(f"[{step + 1}] fid={fid:.3f}", flush=True)
+                    metrics_writer.add_scalar("eval/fid", fid, step + 1)
+                if (args.sample_every and (step + 1) % args.sample_every == 0
+                        and dist.is_main()):
+                    with torch.no_grad():
+                        img = trainer.g_ema([sample_z], randomize_noise=False).image
+                    save_image_grid(img, os.path.join(args.results_dir,
+                                                      f"sample_{step + 1:07d}.jpg"),
+                                    nrow=int(round(args.n_sample ** 0.5)) or 1,
+                                    scale_each=True)
+                if args.save_every and (step + 1) % args.save_every == 0:
+                    print(f"checkpoint -> {checkpoint(step + 1)}")
     finally:
-        signal.signal(signal.SIGTERM, prev_handler)
-        if loader is not None:
-            loader.close()
+        loader.close()
         metrics_writer.close()
     print(f"final checkpoint -> {checkpoint(args.iter)}")
     return trainer

@@ -6,7 +6,10 @@ imports nothing of it): an eigendecomposition square root, no scipy.
 ``EditEvaluator`` runs on tensors: random-prompt edits, scored by CLIP
 (does the edit move the image towards its prompt), an identity extractor
 (ArcFace cosine between original and edit) and the Fréchet distance
-between the feature pools of the edited and the original images.
+between the feature pools of the edited and the original images. In a
+data-parallel group each rank edits its rows of every batch; the counts
+are summed over the ranks and the pools gathered to rank 0 in the
+one-process order, which alone scores them.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from where2edit_tpu_torch.parallel import dist
 
 
 def _sqrtm_psd(mat: np.ndarray) -> np.ndarray:
@@ -69,7 +74,10 @@ class EditEvaluator:
     features by default) map images to feature rows. ``span(stage)``, when
     given, is a context manager around each stage (``text``, ``clip_image``,
     ``arcface``, ``inception`` — the FID extractor); after ``run`` the pools
-    are kept in ``feats_gen`` and ``feats_orig``."""
+    are kept in ``feats_gen`` and ``feats_orig``. In a data-parallel group
+    ``edit_fn`` edits this rank's rows of the prompt batch whose features it
+    is handed, and ``run`` returns the result on rank 0 alone (None on the
+    others)."""
 
     def __init__(self, *, edit_fn: Callable, encode_image: Callable,
                  encode_text: Callable, id_extract: Optional[Callable] = None,
@@ -86,7 +94,9 @@ class EditEvaluator:
     def run(self, seeds, prompt_token_batches) -> dict:
         id_cos, improved, total = 0.0, 0, 0
         feats_gen, feats_orig = [], []
+        seeds = list(seeds)
         for seed, tokens in zip(seeds, prompt_token_batches):
+            tokens = dist.rows(tokens)
             with self.span("text"):
                 text_feats = self.encode_text(tokens)
             img_orig, img_gen = self.edit_fn(seed, text_feats)
@@ -105,8 +115,13 @@ class EditEvaluator:
                 feats_gen.append(_host(self.fid_extract(img_gen)))
                 feats_orig.append(_host(self.fid_extract(img_orig)))
 
-        self.feats_gen = np.concatenate(feats_gen)
-        self.feats_orig = np.concatenate(feats_orig)
+        improved, total, id_cos = dist.sum_floats(improved, total, id_cos)
+        improved, total = int(improved), int(total)
+        pools = [dist.gather_rows(torch.from_numpy(np.concatenate(f)), len(seeds))
+                 for f in (feats_gen, feats_orig)]
+        if not dist.is_main():
+            return None
+        self.feats_gen, self.feats_orig = (p.numpy() for p in pools)
         out = {
             "clip_improvement": improved / max(total, 1),
             "fid_features": frechet_distance(self.feats_gen, self.feats_orig),

@@ -36,6 +36,8 @@ from where2edit_tpu_torch.nn.layers import (
     ToRGB,
 )
 from where2edit_tpu_torch.ops.interpolate import interpolate_nearest
+from where2edit_tpu_torch.parallel.collectives import gather_with_grad
+from where2edit_tpu_torch.parallel.dist import rows
 
 
 def channel_table(channel_multiplier: int = 2) -> dict[int, int]:
@@ -306,6 +308,9 @@ class Discriminator(nn.Module):
             in_ch = out_ch
         self.convs = nn.Sequential(*convs)
         self.stddev_group = 4
+        # the minibatch-stddev over the data-parallel group's global batch
+        # (set by the trainer in a group; off, the local batch)
+        self.global_stddev = False
         self.final_conv = ConvLayer(in_ch + 1, ch[4], 3, rng=rng)
         self.final_linear = nn.Sequential(
             EqualLinear(ch[4] * 4 * 4, ch[4], activation="fused_lrelu", rng=rng),
@@ -321,12 +326,19 @@ class Discriminator(nn.Module):
         b, h, w, c = out.shape
         # one stddev feature per group of min(B, 4) samples, sample i in
         # group i % (B / group) as the reference's view(group, -1, ...);
-        # fp32, since a bf16 variance of near-equal values cancels
-        group = min(b, self.stddev_group)
-        stddev = out.float().reshape(group, -1, h, w, c)
+        # fp32, since a bf16 variance of near-equal values cancels. With
+        # ``global_stddev`` B is the global batch: the ranks' activations
+        # are gathered (differentiably) and each keeps its rows' feature
+        src = out.float()
+        if self.global_stddev:
+            src = gather_with_grad(src)
+        group = min(src.shape[0], self.stddev_group)
+        stddev = src.reshape(group, -1, h, w, c)
         stddev = torch.sqrt(stddev.var(0, unbiased=False) + 1e-8)
-        stddev = stddev.mean((1, 2, 3)).reshape(-1, 1, 1, 1)
-        out = torch.cat([out, stddev.repeat(group, h, w, 1).to(out.dtype)], -1)
+        stddev = stddev.mean((1, 2, 3)).reshape(-1, 1, 1, 1).repeat(group, h, w, 1)
+        if self.global_stddev:
+            stddev = rows(stddev)
+        out = torch.cat([out, stddev.to(out.dtype)], -1)
         out = self.final_conv(out)
         # the reference flattens NCHW
         return self.final_linear(out.float().permute(0, 3, 1, 2).reshape(b, -1))

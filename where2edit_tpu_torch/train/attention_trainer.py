@@ -1,5 +1,6 @@
-"""Region-attention training (the paper's phase 2) on one card (counterpart
-of where2edit_tpu/train/attention_trainer.py), fp32.
+"""Region-attention training (the paper's phase 2) on one card or
+data-parallel (counterpart of where2edit_tpu/train/attention_trainer.py),
+fp32.
 
 One step, as the JAX step computes it:
 
@@ -31,6 +32,15 @@ One step, as the JAX step computes it:
 Every random input of a step is in ``Draws``; ``step_with(draws, ...)``
 takes them explicitly (the tests feed both packages the same numbers) and
 ``step`` draws them from one ``torch.Generator`` on the trainer's device.
+
+Data parallelism (``parallel/``): in a ``torch.distributed`` group
+``batch_size`` is the global batch. Every rank makes the global draws and
+keeps its rows of the conditioning batch (every rank holds the row-0 target
+and region prompt, so nothing is broadcast); the InfoNCE gathers the image
+and condition features with their gradient; the mapper's gradients are
+averaged over the ranks before Adam; the loss terms are the global batch's,
+so the NaN guard decides the same on every rank. One step is then the
+single-process step on the global batch.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from where2edit_tpu_torch.demo.api import synthesize_edit
 from where2edit_tpu_torch.editing.attention_mappers import tap_controls
 from where2edit_tpu_torch.losses.infonce import infonce_consistency
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.lr import styleclip_lr_schedule
 
 
@@ -74,7 +85,8 @@ class Draws(NamedTuple):
     """The random inputs of one step.
 
     cond: the conditioning batch's z (B, 512); with a latent bank its row
-      indices (B,); with a text bank the text bank's row indices (B,).
+      indices (B,); with a text bank the text bank's row indices (B,). B is
+      this rank's rows in a data-parallel group (the batch of the step).
     target: the edit target's z (B, 512) or latent-bank rows (B,); only
       row 0 is used.
     att_idx: (B,) indices into the region-prompt bank; only row 0 is used.
@@ -211,7 +223,7 @@ class AttentionTrainer:
             cond = z() if bank is None else rows(bank.shape[0])
         target = z() if bank is None else rows(bank.shape[0])
         self.draws_taken += 1
-        return Draws(cond, target, rows(n_prompts))
+        return Draws(dist.rows(cond), target, rows(n_prompts))
 
     # ------------------------------------------------------------- plumbing
     def _wplus(self, sel: torch.Tensor) -> torch.Tensor:
@@ -274,7 +286,7 @@ class AttentionTrainer:
         def span(stage):
             return self.span(stage, self)
 
-        b = cfg.batch_size
+        b = draws.cond.shape[0]
         t = step_idx / cfg.step
         with span("synthesis"), torch.no_grad():
             att_text = attention_bank[draws.att_idx[:1]].expand(b, -1)
@@ -295,7 +307,8 @@ class AttentionTrainer:
         with span("edit"):
             img_gen = self.synthesize(new_latents, mo.attention_map, feats2)
         with span("losses"):
-            consist = infonce_consistency(self.clip_loss.encode_image(img_gen), cond)
+            consist = infonce_consistency(self.clip_loss.encode_image(img_gen), cond,
+                                          gather=True)
             perceptual = self.perceptual(img_gen, img2)
             ramp_a = min(max((t - 0.15) / 0.1, 0.0), 1.0)
             ramp_b = min(max((t - 0.05) / 0.1, 0.0), 1.0)
@@ -309,6 +322,7 @@ class AttentionTrainer:
             for p in self.params:
                 p.grad = None
             total.backward()
+            dist.all_reduce_grads(self.params)
         with span("adam"):
             grads = [torch.zeros_like(p) if p.grad is None else p.grad
                      for p in self.params]
@@ -318,7 +332,8 @@ class AttentionTrainer:
         aux = {"loss": total, "consist": consist, "perceptual": perceptual,
                "delta": mo.loss_delta, "reg": mo.loss_reg, "tv": mo.loss_tv,
                "att_idx": draws.att_idx[0].float()}
-        return ({k: v.detach() for k, v in aux.items()}, img_gen.detach(),
+        aux = dist.mean_scalars({k: v.detach() for k, v in aux.items()})
+        return (aux, img_gen.detach(),
                 mo.attention_map.detach())
 
     def step(self, step_idx: int, attention_bank: torch.Tensor):

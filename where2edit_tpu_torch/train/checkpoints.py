@@ -4,7 +4,12 @@ one would. Adversarial training's: G, D, the EMA generator, both optimizer
 states, ``pl_mean`` and the step. Region-attention training's: the mapper,
 Adam's state and the step. The StyleCLIP coach's: the mapper under the
 reference coach's ``state_dict`` / ``mapper.`` layout, the optimizer's
-state, the step and the shuffle order's position."""
+state, the step and the shuffle order's position.
+
+In a data-parallel group only rank 0 writes, and every rank waits at a
+barrier until the file is in place; every rank loads on ``--resume``. Each
+file is staged under a name of the writing process's own (``.tmp.<pid>``)
+and renamed into place, so two writers never share a staging file."""
 
 from __future__ import annotations
 
@@ -13,19 +18,27 @@ import os
 import torch
 
 from where2edit_tpu_torch.models.psp import get_keys
+from where2edit_tpu_torch.parallel.dist import barrier, is_main
+
+
+def _write(path: str, make_state) -> str:
+    """``make_state()`` saved to ``path`` by rank 0, atomically; every rank
+    returns once the file is there."""
+    if is_main():
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        tmp = f"{path}.tmp.{os.getpid()}"
+        torch.save(make_state(), tmp)
+        os.replace(tmp, path)
+    barrier()
+    return path
 
 
 def save_checkpoint(path: str, trainer, step: int, opts: dict | None = None) -> str:
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"g": trainer.g.state_dict(), "d": trainer.d.state_dict(),
-                "g_ema": trainer.g_ema.state_dict(),
-                "g_opt": trainer.g_opt.state_dict(),
-                "d_opt": trainer.d_opt.state_dict(),
-                "pl_mean": trainer.pl_mean, "step": step,
-                "rng": trainer.rng.get_state(), "opts": opts or {}}, tmp)
-    os.replace(tmp, path)
-    return path
+    return _write(path, lambda: {
+        "g": trainer.g.state_dict(), "d": trainer.d.state_dict(),
+        "g_ema": trainer.g_ema.state_dict(), "g_opt": trainer.g_opt.state_dict(),
+        "d_opt": trainer.d_opt.state_dict(), "pl_mean": trainer.pl_mean,
+        "step": step, "rng": trainer.rng.get_state(), "opts": opts or {}})
 
 
 def load_checkpoint(path: str, trainer) -> int:
@@ -47,13 +60,9 @@ def save_mapper_checkpoint(path: str, trainer, step: int,
     """One ``torch.save`` file of region-attention training, written
     atomically: the mapper's state dict (the reference's keys), Adam's
     state, the step, the draw generator's state and ``opts``."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"mapper": trainer.mapper.state_dict(),
-                "adam": trainer.opt.state_dict(), "step": step,
-                "rng": trainer.rng.get_state(), "opts": opts or {}}, tmp)
-    os.replace(tmp, path)
-    return path
+    return _write(path, lambda: {
+        "mapper": trainer.mapper.state_dict(), "adam": trainer.opt.state_dict(),
+        "step": step, "rng": trainer.rng.get_state(), "opts": opts or {}})
 
 
 def load_mapper_checkpoint(path: str, trainer) -> int:
@@ -79,17 +88,12 @@ def save_coach_checkpoint(path: str, coach) -> str:
     validation loss, the draw generator's state, and the shuffle
     generator's state at the start of the current epoch with the batches
     of it already taken (``epoch_pos``)."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    tmp = path + ".tmp"
-    torch.save({"state_dict": {f"mapper.{k}": v
-                               for k, v in coach.mapper.state_dict().items()},
-                "opts": coach.opts, "optimizer": coach.opt.state_dict(),
-                "step": coach.global_step, "best_val_loss": coach.best_val_loss,
-                "draw_rng": coach.draw_rng.get_state(),
-                "shuffle_rng": coach.epoch_rng_state(),
-                "epoch_pos": coach.epoch_pos}, tmp)
-    os.replace(tmp, path)
-    return path
+    return _write(path, lambda: {
+        "state_dict": {f"mapper.{k}": v for k, v in coach.mapper.state_dict().items()},
+        "opts": coach.opts, "optimizer": coach.opt.state_dict(),
+        "step": coach.global_step, "best_val_loss": coach.best_val_loss,
+        "draw_rng": coach.draw_rng.get_state(), "shuffle_rng": coach.epoch_rng_state(),
+        "epoch_pos": coach.epoch_pos})
 
 
 def load_coach_checkpoint(path: str, coach) -> int:

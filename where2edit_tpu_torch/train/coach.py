@@ -1,5 +1,5 @@
-"""StyleCLIP latent-mapper training on one card (counterpart of
-where2edit_tpu/train/coach.py), fp32.
+"""StyleCLIP latent-mapper training on one card or data-parallel
+(counterpart of where2edit_tpu/train/coach.py), fp32.
 
 One step, in the JAX step's order:
 
@@ -33,6 +33,15 @@ epoch, with the position in the epoch, rides in the checkpoint (the JAX
 loop draws from numpy's global state and a resume starts a new epoch), so
 a resumed run takes the batches an uninterrupted one would.
 
+Data parallelism (the CLI's ``--use_mesh``): in a ``torch.distributed``
+group ``batch_size`` is the global batch. Every rank samples the same
+latents and draws the same shuffle order, and takes its rows of each
+batch; the mapper's gradients are averaged over the ranks before the
+optimizer step and the logged losses are the global batch's. Validation,
+its image grid, the metrics and the checkpoints are rank 0's; the
+validation losses reach the other ranks by broadcast, so every rank takes
+the same best-model decision.
+
 ``span(stage, coach)``, when given, is a context manager around each stage
 of a training step (decode, mapper, edit, id, clip, backward, optim), around
 the latent sampling (sample) and around each validation (validate).
@@ -48,6 +57,7 @@ from typing import Callable, Optional
 
 import torch
 
+from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.attention_trainer import MapperAdam
 from where2edit_tpu_torch.train.checkpoints import save_coach_checkpoint
 from where2edit_tpu_torch.train.ranger import Ranger
@@ -165,13 +175,15 @@ class Coach:
     def _batches(self, latents: torch.Tensor, batch_size: int, shuffle: bool,
                  start: int = 0):
         """The batches of one epoch from batch ``start`` on (a shuffled
-        epoch draws its order from the shuffle generator first); S-space
+        epoch draws its order from the shuffle generator first, and in a
+        data-parallel group each batch is this rank's rows of it); S-space
         vectors with ``work_in_stylespace``."""
         n = len(latents) // batch_size * batch_size
         order = (torch.randperm(len(latents), generator=self.shuffle_rng)[:n]
                  if shuffle else torch.arange(n))
         for i in range(start * batch_size, n, batch_size):
-            w = latents[order[i:i + batch_size].to(latents.device)]
+            sel = order[i:i + batch_size]
+            w = latents[(dist.rows(sel) if shuffle else sel).to(latents.device)]
             if self.cfg.work_in_stylespace:
                 with torch.no_grad():
                     w = self.generator.stylespace(w)
@@ -239,13 +251,14 @@ class Coach:
         with span("backward"):
             self.mapper.zero_grad(set_to_none=True)
             loss.backward()
+            dist.all_reduce_grads(self.mapper.parameters())
         with span("optim"):
             if isinstance(self.opt, MapperAdam):
                 self.opt.step([torch.zeros_like(p) if p.grad is None else p.grad
                                for p in self.opt.params])
             else:
                 self.opt.step()
-        return {k: v.detach() for k, v in aux.items()}, x
+        return dist.mean_scalars({k: v.detach() for k, v in aux.items()}), x
 
     @torch.no_grad()
     def evaluate(self, w) -> tuple:
@@ -289,7 +302,8 @@ class Coach:
                 val = None
                 if is_val:
                     with self.span("validate", self):
-                        val = self.validate()
+                        val = dist.broadcast_object(
+                            self.validate() if dist.is_main() else None)
                     if val and (self.best_val_loss is None
                                 or val["loss"] < self.best_val_loss):
                         self.best_val_loss = val["loss"]
@@ -333,7 +347,8 @@ class Coach:
                         else f"iteration_{self.global_step}")
         ckpt_dir = os.path.join(self.cfg.exp_dir, "checkpoints")
         path = save_coach_checkpoint(os.path.join(ckpt_dir, f"{name}.pt"), self)
-        with open(os.path.join(ckpt_dir, "timestamp.txt"), "a") as f:
-            tag = "**Best**: " if is_best else ""
-            f.write(f"{tag}Step - {self.global_step}, \n{loss_dict}\n")
+        if dist.is_main():
+            with open(os.path.join(ckpt_dir, "timestamp.txt"), "a") as f:
+                tag = "**Best**: " if is_best else ""
+                f.write(f"{tag}Step - {self.global_step}, \n{loss_dict}\n")
         return path

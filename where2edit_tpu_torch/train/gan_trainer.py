@@ -1,5 +1,5 @@
-"""StyleGAN2 adversarial training on one card (counterpart of
-where2edit_tpu/train/gan_trainer.py).
+"""StyleGAN2 adversarial training (counterpart of
+where2edit_tpu/train/gan_trainer.py), on one card or data-parallel.
 
 The standard StyleGAN2 objective: non-saturating logistic losses, lazy R1
 on the reals every ``d_reg_every`` steps, lazy path-length regularisation
@@ -30,6 +30,17 @@ groups per chunk, the reference's per-GPU semantics; the G chunks slice
 one full-batch draw, so they see the latents the whole batch would; the
 noise too is sliced from one full-batch draw, where the JAX trainer draws
 each chunk's noise from a key of its own).
+
+Data parallelism (``parallel/``): in a ``torch.distributed`` group each
+rank runs the programs on its rows of the global batch (``batch_size`` is
+the global batch) and the step is the single-process step on the global
+batch, as the JAX trainer's sharded step is: every draw is the global draw,
+made on every rank, of which each keeps its rows; the discriminator's
+minibatch-stddev gathers the global batch (``global_stddev``); the
+gradients are averaged over the ranks before each of the four optimizer
+steps; ``pl_mean``'s running average and the metrics take the global
+batch's means. The micro-batching levers are ignored in a group, as the
+JAX trainer ignores them with a mesh.
 """
 
 from __future__ import annotations
@@ -46,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 
 from where2edit_tpu_torch import resolve_device
 from where2edit_tpu_torch.models.stylegan2 import Discriminator, Generator
+from where2edit_tpu_torch.parallel import dist
 
 
 @dataclasses.dataclass
@@ -103,7 +115,8 @@ def path_length_penalty(img: torch.Tensor, wplus: torch.Tensor,
     (grad,) = torch.autograd.grad((img * noise).sum() / math.sqrt(h * w),
                                   wplus, create_graph=True)
     lengths = grad.square().sum(2).mean(1).sqrt()
-    new_mean = (pl_mean + decay * (lengths.mean() - pl_mean)).detach()
+    # the running mean follows the global batch's mean in a group
+    new_mean = (pl_mean + decay * (dist.mean(lengths.detach().mean()) - pl_mean)).detach()
     return (lengths - new_mean).square().mean(), lengths, new_mean
 
 
@@ -152,7 +165,8 @@ def _adam(params, lr: float, every: int) -> torch.optim.Adam:
 class GANTrainer:
     """Owns G, D, the EMA generator, both optimizers, ``pl_mean`` and the
     draw generator ``rng``. ``step(real)`` runs one iteration on real images
-    (batch, size, size, 3) in [-1, 1] on the trainer's device. ``g_state``,
+    (batch, size, size, 3) in [-1, 1] on the trainer's device (in a
+    data-parallel group, this rank's rows of the global batch). ``g_state``,
     a generator state dict, replaces G's seeded initial weights (a warm
     start; the EMA generator starts from it too)."""
 
@@ -176,9 +190,19 @@ class GANTrainer:
         self.rng = torch.Generator(self.device).manual_seed(cfg.seed + 1)
         self.global_step = 0
         self.metrics: dict = {}
+        ranks = dist.world()
+        if cfg.batch_size % ranks or (cfg.g_reg_every > 0 and self.path_batch() % ranks):
+            raise ValueError(f"the batch {cfg.batch_size} and the path-length batch "
+                             f"{self.path_batch()} must split over {ranks} ranks")
+        self.d.global_stddev = dist.in_group()
+        if dist.in_group() and (cfg.d_microbatch or cfg.g_microbatch):
+            print("[dp] --d_microbatch/--g_microbatch ignored in a data-parallel "
+                  "group, as the JAX trainer ignores them with a mesh")
 
     # ----------------------------------------------------------------- draws
     def draw(self, batch: int) -> Draws:
+        """The draws of a global batch of ``batch``; this rank's rows of
+        them in a group."""
         g, r, dev = self.g, self.rng, self.device
         z1 = torch.randn(batch, g.style_dim, generator=r, device=dev)
         z2 = torch.randn(batch, g.style_dim, generator=r, device=dev)
@@ -188,7 +212,7 @@ class GANTrainer:
         noise = [torch.randn(batch, 2 ** ((i + 5) // 2), 2 ** ((i + 5) // 2), 1,
                              generator=r, device=dev)
                  for i in range(g.num_layers)]
-        return Draws(z1, z2, inject, noise)
+        return Draws(dist.rows(z1), dist.rows(z2), inject, [dist.rows(n) for n in noise])
 
     def synthesize(self, draws: Draws, remat: bool = False):
         """(image, W+) of the generator from ``draws``, style-mixed; with
@@ -207,29 +231,34 @@ class GANTrainer:
         return self.g([wplus], input_is_latent=True, noise=list(noise)).image
 
     # -------------------------------------------------------------- programs
+    def _chunks(self, microbatch: int) -> int:
+        return 1 if dist.in_group() else n_chunks(self.cfg.batch_size, microbatch)
+
     def d_step_with(self, real: torch.Tensor, draws: Draws) -> torch.Tensor:
         with torch.no_grad():
             fake, _ = self.synthesize(draws)
-        n = n_chunks(self.cfg.batch_size, self.cfg.d_microbatch)
+        n = self._chunks(self.cfg.d_microbatch)
         self.d_opt.zero_grad(set_to_none=True)
         loss = accumulate(lambda r, f: logistic_d_loss(self.d(r), self.d(f)),
                           list(zip(real.chunk(n), fake.chunk(n))))
+        dist.all_reduce_grads(self.d.parameters())
         self.d_opt.step()
         return loss
 
     def r1_step(self, real: torch.Tensor) -> torch.Tensor:
         # lazy cadence: applied every d_reg_every steps, scaled back up
         cfg = self.cfg
-        n = n_chunks(cfg.batch_size, cfg.d_microbatch)
+        n = self._chunks(cfg.d_microbatch)
         self.d_opt.zero_grad(set_to_none=True)
         loss = accumulate(lambda r: cfg.r1 / 2.0 * r1_penalty(self.d, r) * cfg.d_reg_every,
                           [(r,) for r in real.chunk(n)])
+        dist.all_reduce_grads(self.d.parameters())
         self.d_opt.step()
         return loss
 
     def g_step_with(self, draws: Draws) -> torch.Tensor:
         cfg = self.cfg
-        n = n_chunks(cfg.batch_size, cfg.g_microbatch)
+        n = self._chunks(cfg.g_microbatch)
         self.d.requires_grad_(False)  # D's weights get no gradient here
         try:
             self.g_opt.zero_grad(set_to_none=True)
@@ -238,6 +267,7 @@ class GANTrainer:
                 [(d,) for d in draws.chunk(n)])
         finally:
             self.d.requires_grad_(True)
+        dist.all_reduce_grads(self.g.parameters())
         self.g_opt.step()
         return loss
 
@@ -249,6 +279,7 @@ class GANTrainer:
         loss = self.cfg.path_regularize * self.cfg.g_reg_every * penalty
         self.g_opt.zero_grad(set_to_none=True)
         loss.backward()
+        dist.all_reduce_grads(self.g.parameters())
         self.g_opt.step()
         return loss.detach(), lengths.mean().detach()
 
@@ -281,9 +312,10 @@ class GANTrainer:
             with span("path", self):
                 batch = self.path_batch()
                 draws = self.draw(batch)
-                pl_noise = torch.randn(batch, cfg.size, cfg.size, 3,
-                                       generator=self.rng, device=self.device)
+                pl_noise = dist.rows(torch.randn(batch, cfg.size, cfg.size, 3,
+                                                 generator=self.rng, device=self.device))
                 m["path"], m["path_length"] = self.path_step_with(draws, pl_noise)
+        m.update(dist.mean_scalars(m))  # the global batch's means in a group
         with span("ema", self):
             self.ema_step()
         self.global_step += 1

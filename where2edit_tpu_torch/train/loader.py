@@ -12,6 +12,11 @@ Generator it is handed, in batch order, so with ``hflip`` off the stream is
 bit for bit ``bank.sample(rng, batch)`` called in a loop on the same
 Generator. The flip coins come from a Generator of their own, so turning
 flips on does not move the index stream.
+
+Data parallelism: with ``rank`` and ``world``, ``batch`` is the global
+batch. Every rank draws the global index and flip stream and decodes only
+its rows (the ``rank``-th of ``world`` equal slices), so the ranks' batches
+concatenated are the one-process batch.
 """
 
 from __future__ import annotations
@@ -28,16 +33,21 @@ import torch
 class PrefetchLoader:
     """Background-producer iterator over an ``ImageBank``: float32 (batch,
     size, size, 3) tensors in [-1, 1] on ``device`` (pinned and copied
-    without blocking where the device is a card). Use it as a context
-    manager, or call ``close()``, which stops the producer and joins it."""
+    without blocking where the device is a card): this rank's rows of each
+    global batch of ``batch``. Use it as a context manager, or call
+    ``close()``, which stops the producer and joins it."""
 
     def __init__(self, bank, batch: int, *, rng: np.random.Generator,
                  workers: int = 4, prefetch: int = 3, hflip: bool = False,
-                 flip_seed=0, device=None):
+                 flip_seed=0, device=None, rank: int = 0, world: int = 1):
         if batch <= 0 or workers <= 0 or prefetch <= 0:
             raise ValueError("batch, workers, prefetch must be positive")
+        if batch % world or not 0 <= rank < world:
+            raise ValueError(f"a batch of {batch} does not split over {world} ranks")
         self.bank = bank
         self.batch = batch
+        per = batch // world
+        self._rows = slice(rank * per, (rank + 1) * per)
         self.rng = rng
         self.hflip = hflip
         # an int seed, or a Generator already positioned (a resumed run
@@ -58,11 +68,11 @@ class PrefetchLoader:
 
     # ----------------------------------------------------------- producer
     def _make_batch(self) -> np.ndarray:
-        idx = self.rng.integers(0, len(self.bank), size=self.batch)
+        idx = self.rng.integers(0, len(self.bank), size=self.batch)[self._rows]
         out = np.stack(list(self._pool.map(self.bank._load_one,
                                            [int(i) for i in idx])))
         if self.hflip:
-            coins = self.flip_rng.random(self.batch) < 0.5
+            coins = (self.flip_rng.random(self.batch) < 0.5)[self._rows]
             if coins.any():
                 out = out.copy()
                 out[coins] = out[coins][:, :, ::-1, :]

@@ -1,12 +1,14 @@
 """Run logging (counterpart of where2edit_tpu/utils/logging.py): a stdout
 tee into ``run.log`` and scalar metrics as JSON lines (plus TensorBoard
-when importable)."""
+when importable). In a data-parallel group only rank 0 writes metrics."""
 
 from __future__ import annotations
 
 import json
 import os
 import time
+
+from where2edit_tpu_torch.parallel.dist import is_main
 
 
 class Logger:
@@ -30,11 +32,16 @@ class Logger:
 
 
 class MetricsWriter:
-    """Scalar metrics → ``metrics.jsonl`` (+ TensorBoard when importable)."""
+    """Scalar metrics → ``metrics.jsonl`` (+ TensorBoard when importable);
+    on a rank other than 0 of a data-parallel group it writes nothing."""
 
     def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
         self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._tb = None
+        self._on = is_main()
+        if not self._on:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter  # noqa: PLC0415
 
@@ -43,6 +50,8 @@ class MetricsWriter:
             self._tb = None
 
     def add_scalar(self, tag: str, value, step: int):
+        if not self._on:
+            return
         with open(self.path, "a") as f:
             f.write(json.dumps({"tag": tag, "value": float(value),
                                 "step": int(step), "t": time.time()}) + "\n")
