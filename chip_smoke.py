@@ -12,8 +12,9 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
 2. build   — compiles the kernels from ``where2edit_tpu_torch/csrc`` with
    nvcc for sm_90a (in parallel) and prints the build seconds and ptxas'
    register / shared-memory report; checks with ``cuobjdump --dump-sass``
-   that K1's and K2's libraries (both on ``csrc/conv3x3_tc.cuh``) hold
-   tensor-core (``HGMMA``) instructions.
+   that K1's and K2's libraries (both on ``csrc/conv3x3_tc.cuh``, fp32, and
+   ``csrc/conv3x3_bf16.cuh``, bf16) hold tensor-core (``HGMMA``)
+   instructions.
 3. kernels — every shape the 1024² edit path gives K1 (``modconv3x3``) and
    K3 (``modconv1x1``) at batch 1, every shape the 1024² discriminator
    gives K2 (``conv3x3``) at batch 8, and K3's ToRGB shapes again at the
@@ -31,9 +32,9 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    must give the same bits as the call that prepares them itself.
 3b. kernels_bf16 — the bf16 forms against their plain twins (the bf16
    operands upcast, the kernels' roundings, fp32 arithmetic, one rounding):
-   K1-bf16 at the generator's 9 shapes at batch 1, 2 and 8, K2-bf16 at
-   the discriminator's 9 at batch 4 and 8 (final_conv's 513 inputs
-   included), K3-bf16 at the 28 edit-path 1x1 shapes at batch 1 with fp32
+   K1-bf16 at the generator's 9 shapes and K2-bf16 at the
+   discriminator's 9 (final_conv's 513 inputs included), each at batch 1,
+   2, 4 and 8, K3-bf16 at the 28 edit-path 1x1 shapes at batch 1 with fp32
    and with bf16 output, at the 9 ToRGBs at batch 8 and 2 with fp32 output
    and at the attention trainer's 18 bf16-input mapper convs at batch 8
    with bf16 output; the kernels line sums the shapes the bf16 trainers
@@ -219,10 +220,12 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    --remat`` (1024², batch 8, 4 steps, S-space production branch) and
    ``cli/mapper_train.main --bf16`` (1024², batch 2, 4 steps): ms per step
    with the fenced stage split, peak memory, every launch a bf16 form.
-17d. bf16_whole — card against CPU at 64² in bf16 under
-   ``cudnn.deterministic``: one GAN iteration, one mapper step, one coach
-   step; loss terms rel <= 1e-2, whole-model gradient rel L2 <= 5e-2, the
-   GAN's image rel <= 1e-2.
+17d. bf16_whole — card against CPU in bf16 under ``cudnn.deterministic``:
+   one GAN iteration at 64² (every K1 and K2 conv at 512 or 513 input
+   channels) and one at 256² with channel multiplier 1 (64 and 128 at
+   256² and 128²: the bf16 core's single-accumulator side), one mapper
+   step, one coach step at 64²; loss terms rel <= 1e-2, whole-model
+   gradient rel L2 <= 5e-2, the GANs' image rel <= 1e-2.
 18. dp — data parallelism (``where2edit_tpu_torch/parallel/``) at world
    size 1 over NCCL, in this process, under ``cudnn.deterministic`` (but
    the fp32 GAN pair: cuDNN's deterministic fp32 input gradient of the
@@ -769,9 +772,9 @@ def counts_bf16() -> tuple:
 
 
 def phase_kernels_bf16() -> dict:
-    """K1-bf16 at the generator's 9 shapes at batch 1, 2 (the StyleCLIP
-    coach) and 8 (the GAN and attention trainers), K2-bf16 at the
-    discriminator's 9 shapes at batch 4 (17b's D chunks) and 8
+    """K1-bf16 at the generator's 9 shapes at batch 1 (validate's g_ema), 2
+    (the StyleCLIP coach), 4 and 8 (the GAN and attention trainers), K2-bf16
+    at the discriminator's 9 shapes at batch 1, 2, 4 (17b's D chunks) and 8
     (final_conv's 513 inputs included), K3-bf16 at the 28 edit-path 1x1
     shapes at batch 1 with fp32 and with bf16 output, then at the shapes the
     bf16 trainers launch it: the 9 ToRGBs at batch 8 and 2 with fp32 output,
@@ -822,7 +825,7 @@ def phase_kernels_bf16() -> dict:
         tot["max_rel_err"] = max(tot["max_rel_err"], rec["max_rel_err"])
 
     sqrt2 = math.sqrt(2.0)
-    for batch in (1, 2, 8):
+    for batch in (1, 2, 4, 8):
         for res, cin, cout in k1_shapes():
             x = randn(batch, res, res, cin).to(bf)
             s, w = randn(batch, cin), randn(3, 3, cin, cout)
@@ -862,7 +865,7 @@ def phase_kernels_bf16() -> dict:
             add("modconv3x3_bf16", rec, batch == 8)
             del x, w, wp, got, got_prepared, want, x_lib, w_lib
 
-    for batch, res, cin, cout in [(b, *shape) for b in (4, 8) for shape in k2_shapes()]:
+    for batch, res, cin, cout in [(b, *shape) for b in (1, 2, 4, 8) for shape in k2_shapes()]:
         x, w, bias = randn(batch, res, res, cin).to(bf), randn(3, 3, cin, cout), randn(cout)
         scale = 1.0 / math.sqrt(cin * 9)
         args = (x, w, scale, bias, True)
@@ -1274,7 +1277,7 @@ def phase_slice() -> tuple:
 # kernel-name substrings -> category, first match wins
 CATEGORIES = (
     ("K1 modconv3x3", ("modconv3x3",)),
-    ("K2 conv3x3", ("conv3x3_tc",)),
+    ("K2 conv3x3", ("conv3x3_k2",)),  # K2's tag, in both cores' kernel names
     ("K3 modconv1x1", ("modconv1x1",)),
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
     ("cuDNN weight gradients", ("wgrad",)),
@@ -2032,13 +2035,13 @@ def phase_train_whole() -> None:
     emit(train_whole())
 
 
-def train_whole(bf16: bool = False) -> dict:
-    """One training iteration at 64², card against CPU, each program from
-    the same state; with ``bf16`` the generator and the discriminator in
-    bf16 (``--bf16 --d_bf16``) at the bf16 bars, and the fake image of the
-    iteration's draws beside them. Returns the record."""
-    size, batch = 64, 4
-    cfg = GANTrainConfig(size=size, batch_size=batch, channel_multiplier=2,
+def train_whole(bf16: bool = False, size: int = 64, channel_multiplier: int = 2) -> dict:
+    """One training iteration at ``size``, batch 4, card against CPU, each
+    program from the same state; with ``bf16`` the generator and the
+    discriminator in bf16 (``--bf16 --d_bf16``) at the bf16 bars, and the
+    fake image of the iteration's draws beside them. Returns the record."""
+    batch = 4
+    cfg = GANTrainConfig(size=size, batch_size=batch, channel_multiplier=channel_multiplier,
                          bf16=bf16, d_bf16=bf16)
     cpu, gpu = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device=DEV)
     loss_tol, model_tol = ((BF16_LOSS_REL_TOL, BF16_MODEL_GRAD_TOL) if bf16
@@ -2068,7 +2071,8 @@ def train_whole(bf16: bool = False) -> dict:
             path_draws if dev == "cpu" else to_gpu(path_draws), pl_noise.to(dev))[0]),
     ]
     n = counts()
-    rec = {"phase": "train_whole", "size": size, "batch": batch, "bf16": bf16,
+    rec = {"phase": "train_whole", "size": size, "batch": batch,
+           "channel_multiplier": channel_multiplier, "bf16": bf16,
            "loss_rel_tol": loss_tol, "model_grad_tol": model_tol,
            **({} if bf16 else {"param_grad_tol": TRAIN_PARAM_GRAD_TOL})}
     for program, model, run in programs:
@@ -2085,7 +2089,7 @@ def train_whole(bf16: bool = False) -> dict:
             if pc.grad is None and pg.grad is None:  # not in this loss's graph
                 continue
             check(pc.grad is not None and pg.grad is not None,
-                  f"64² {program} {name}: a gradient on one side only")
+                  f"{size}² {program} {name}: a gradient on one side only")
             gc, gg = pc.grad.double(), pg.grad.double().cpu()
             d2, r2 = float((gg - gc).square().sum()), float(gc.square().sum())
             diff2, ref2 = diff2 + d2, ref2 + r2
@@ -2096,16 +2100,16 @@ def train_whole(bf16: bool = False) -> dict:
         rec[program] = {"loss_cpu": loss_c, "loss_card": loss_g, "loss_rel": loss_rel,
                         "model_grad_rel": model_rel, "worst_param_grad_rel": worst,
                         "worst_param": worst_name}
-        check(loss_rel <= loss_tol, f"64² {program} loss: rel {loss_rel}")
-        check(model_rel <= model_tol, f"64² {program} grads: rel {model_rel}")
+        check(loss_rel <= loss_tol, f"{size}² {program} loss: rel {loss_rel}")
+        check(model_rel <= model_tol, f"{size}² {program} grads: rel {model_rel}")
         if not bf16:  # bf16 roundings make single tensors noisier; the model's bar holds
-            check(worst <= TRAIN_PARAM_GRAD_TOL, f"64² {program} {worst_name}: rel {worst}")
+            check(worst <= TRAIN_PARAM_GRAD_TOL, f"{size}² {program} {worst_name}: rel {worst}")
     want = (0, 0, 0)
     for fwd, bwd in train_launches(int(math.log2(size)) - 2).values():
         want = total(want, total(fwd, bwd))
     got = tuple(a - b for a, b in zip(counts(), n))
     rec["launches"] = got
-    check(got == want, f"64² card programs launched {got}, expected {want}")
+    check(got == want, f"{size}² card programs launched {got}, expected {want}")
     if bf16:
         gpu.g.load_state_dict(cpu.g.state_dict())
         with torch.no_grad():
@@ -2115,7 +2119,8 @@ def train_whole(bf16: bool = False) -> dict:
         rec["image_rel"] = rel_err(img_g, img_c)[1]
         rec["image_rel_tol"] = BF16_IMAGE_REL_TOL
         check(img_g.dtype == torch.float32, "a bf16 generator returns an fp32 image")
-        check(rec["image_rel"] <= BF16_IMAGE_REL_TOL, f"64² bf16 image: rel {rec['image_rel']}")
+        check(rec["image_rel"] <= BF16_IMAGE_REL_TOL,
+              f"{size}² bf16 image: rel {rec['image_rel']}")
     return rec
 
 
@@ -3465,7 +3470,7 @@ def bf16_profile(trainer) -> dict:
     for e in prof.events():
         low = e.name.lower()
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            kind = ("K1" if "modconv3x3" in low else "K2" if "conv3x3_tc" in low
+            kind = ("K1" if "modconv3x3" in low else "K2" if "conv3x3_k2" in low
                     else "K3" if "modconv1x1" in low else None)
             if kind:
                 form = "bf16" if "bfloat16" in low or "bf16" in low else "fp32"
@@ -3700,16 +3705,20 @@ def phase_styleclip_bf16(card: str, work: str) -> dict:
 
 
 def phase_bf16_whole(card: str, work: str) -> None:
-    """17d: card against CPU at 64² in bf16, each under
-    ``cudnn.deterministic``: one GAN iteration (``train_whole(bf16=True)``:
-    every program from the same state, and the image), one region-attention
-    step and one StyleCLIP coach step (``LevelsMapper``), at the bf16 bars;
-    the card's runs on the bf16 forms."""
+    """17d: card against CPU in bf16, each under ``cudnn.deterministic``:
+    one GAN iteration at 64² (``train_whole(bf16=True)``: every program from
+    the same state, and the image) and one at 256² with channel multiplier 1
+    (whose K1 and K2 convs at 128² and 256² have 128 and 64 input channels,
+    where the bf16 core runs one accumulator over K), one region-attention
+    step and one StyleCLIP coach step (``LevelsMapper``) at 64², at the bf16
+    bars; the card's runs on the bf16 forms."""
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     n = counts_bf16()
     try:
-        runs = {"gan": train_whole(bf16=True), "attention": attention_whole(bf16=True),
+        runs = {"gan": train_whole(bf16=True),
+                "gan_narrow": train_whole(bf16=True, size=256, channel_multiplier=1),
+                "attention": attention_whole(bf16=True),
                 "styleclip": styleclip_whole("LevelsMapper", work, bf16=True)}
     finally:
         torch.backends.cudnn.deterministic = deterministic
@@ -4687,7 +4696,9 @@ def main(argv=None) -> None:
         tot = totals_bf16[BF16_NAMES[name]]
         by_path = {path: got[name] for path, got in bf16_launches.items()}
         kernels.append({
-            "name": BF16_NAMES[name], "route": "cuda", "source": src,
+            "name": BF16_NAMES[name], "route": "cuda",
+            "source": (src if name == "modconv1x1"
+                       else "where2edit_tpu_torch/csrc/conv3x3_bf16.cuh"),
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path, "max_abs_err": tot["max_abs_err"],
             "max_rel_err": tot["max_rel_err"],
@@ -4698,8 +4709,9 @@ def main(argv=None) -> None:
             "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
             "library_ms": tot["library_ms"],
             "library_device_ms": tot["library_device_ms"],
-            "core": ("tensor cores (wgmma), one bf16 MMA per 16 channels, fp32 sums, "
-                     "on csrc/conv3x3_tc.cuh" if name != "modconv1x1"
+            "core": ("tensor cores (wgmma), bf16 products, fp32 sums: the persistent, "
+                     "warp-specialised TMA + wgmma core csrc/conv3x3_bf16.cuh"
+                     if name != "modconv1x1"
                      else "fp32 FMA units on bf16 input"),
             "note": "the bf16 form (phase 3b): ms, device_ms, plain_ms, bound_ms, "
                     "library_ms: sums over "

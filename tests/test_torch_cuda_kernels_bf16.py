@@ -1,13 +1,16 @@
 """The bf16 forms of K1, K2 and K3 on the card against their plain twins
 (the bf16 operands upcast, the kernels' roundings, fp32 arithmetic, one
-rounding of the result) at ragged shapes: Cin and Cout not multiples of the
-16-channel chunk or of the 8-channel copy (the one-value staging path),
-final_conv's 513 inputs and its input gradient's 513 outputs, split and
-unsplit K ranges, several images per block, every optional epilogue input
-on and off; K3 with fp32 and with bf16 output; K1's bf16 weight preparation
-against its plain twin (bitwise) and a prepared call against one that
-prepares (bitwise); the backward of the bf16 calls against autograd through
-the twins.
+rounding of the result) at ragged shapes: Cin and Cout off the bf16 core's
+32- and 64-channel slices and Cout tiles and off its 8-channel rows (which
+the wrappers pad with zero channels), final_conv's 513 inputs and its input
+gradient's 513 outputs, split and unsplit K ranges, several images per
+tile, a column taller than a TMA box may be (300x1), weights resident in
+shared memory or streamed, every optional
+epilogue input on and off; two calls of one shape bitwise equal (split-K
+shapes included); K3 with fp32 and with bf16 output; K1's bf16 weight
+preparation against its plain twin (bitwise) and a prepared call against
+one that prepares (bitwise); the backward of the bf16 calls against
+autograd through the twins.
 
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
@@ -69,6 +72,10 @@ def _gen(dev, seed):
     (8, 4, 4, 512, 512, "batch", True, True),
     (2, 4, 4, 513, 512, "batch", True, True),
     (8, 32, 32, 512, 512, "batch", True, True),
+    (2, 20, 70, 32, 32, "batch", True, True),
+    (1, 40, 66, 64, 64, "shared", True, True),
+    (1, 66, 130, 128, 128, "batch", True, True),
+    (1, 300, 1, 32, 32, "batch", True, True),
 ])
 def test_torch_cuda_modconv3x3_bf16(dev, b, h, w, cin, cout, noise, bias, act):
     r = _gen(dev, cin + cout)
@@ -112,6 +119,7 @@ def test_torch_cuda_modconv3x3_bf16_prepared(dev, b, h, w, cin, cout, style):
     (1, 40, 33, 200, 136, True, False),
     (8, 16, 16, 512, 512, True, True),
     (8, 64, 64, 256, 256, True, True),
+    (1, 300, 1, 32, 32, True, True),
 ])
 def test_torch_cuda_conv3x3_bf16(dev, b, h, w, cin, cout, bias, act):
     r = _gen(dev, cin + 2 * cout)
@@ -123,6 +131,43 @@ def test_torch_cuda_conv3x3_bf16(dev, b, h, w, cin, cout, bias, act):
     assert got.dtype == BF
     assert (k2.launches, k2.launches_bf16) == (n2 + 1, nb + 1)
     assert _rel(got, k2.conv3x3_plain(*args)) <= REL
+
+
+@pytest.mark.parametrize("cin,cout", [(13, 8), (70, 70), (513, 513), (13, 513),
+                                       (513, 8), (70, 8)])
+@pytest.mark.parametrize("styled", [True, False])
+def test_torch_cuda_bf16_core_ragged(dev, cin, cout, styled):
+    """K1-bf16 (with and without style) and K2-bf16 at batch 3 of 5x7
+    images (3 whole images a tile, the last tile 2 of them over B): the
+    shapes the CPU's decomposition twin runs."""
+    r = _gen(dev, 11 * cin + cout + styled)
+    b, h, w = 3, 5, 7
+    args = (r(b, h, w, cin).to(BF), r(b, cin) / (9 * cin) ** 0.5 if styled else None,
+            r(3, 3, cin, cout), r(b, cout).abs() + 0.5, r(b, h, w), r(1), r(cout), True)
+    got = k1.modconv3x3(*args)
+    args2 = (args[0], args[2], 1.0 / (9 * cin) ** 0.5, args[6], True)
+    got2 = k2.conv3x3(*args2)
+    torch.cuda.synchronize()
+    assert _rel(got, k1.modconv3x3_plain(*args)) <= REL
+    assert _rel(got2, k2.conv3x3_plain(*args2)) <= REL
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (8, 4, 4, 512, 512), (8, 8, 8, 512, 512), (8, 16, 16, 512, 512), (2, 4, 4, 513, 512),
+    (3, 5, 7, 513, 513), (8, 32, 32, 512, 512), (2, 64, 64, 64, 64), (2, 64, 64, 32, 32),
+])
+def test_torch_cuda_bf16_core_repeats_bitwise(dev, b, h, w, cin, cout):
+    """Two calls of one shape give the same bits: the split-K sums are
+    added in a fixed order, whatever order the blocks ran in."""
+    r = _gen(dev, 13 * cin + cout)
+    args = (r(b, h, w, cin).to(BF), r(b, cin) / (9 * cin) ** 0.5, r(3, 3, cin, cout),
+            r(b, cout).abs() + 0.5, r(b, h, w), r(1), r(cout), True)
+    args2 = (args[0], args[2], 1.0 / (9 * cin) ** 0.5, args[6], True)
+    first, first2 = k1.modconv3x3(*args), k2.conv3x3(*args2)
+    for _ in range(3):
+        assert torch.equal(k1.modconv3x3(*args), first)
+        assert torch.equal(k2.conv3x3(*args2), first2)
+    assert _rel(first, k1.modconv3x3_plain(*args)) <= REL
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, BF])

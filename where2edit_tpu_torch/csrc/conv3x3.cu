@@ -20,13 +20,15 @@
 //
 // The bf16 form (w2e_conv3x3_bf16) is the TPU kernel's arithmetic: bf16 x
 // and out, the weights rounded to bf16 after the scale (round(scale * w), as
-// the JAX layer casts them), one bf16 MMA per 16 channels of a tap summed in
-// fp32, bias and activation in fp32, one rounding at the store.
-// final_conv's 513 inputs are staged one value at a time.
+// the JAX layer casts them), fp32 sums, bias and activation in fp32, one
+// rounding at the store. It runs on the bf16 core, conv3x3_bf16.cuh (shared
+// with K1's bf16 form; its header says what bounds it and what the design
+// does about it); final_conv's 513 inputs reach it padded to 520.
 
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_tc.cuh"
 
-// K2's kernels on the shared core: names of their own, no modulation
+// K2's kernels on the shared cores: names of their own, no modulation
 struct conv3x3_k2 {
   static constexpr bool modulated = false;
 };
@@ -35,17 +37,16 @@ struct conv3x3_k2 {
 // SMs.
 extern "C" int w2e_conv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                   int sms, int bf16) {
-  return bf16 ? conv3x3_tc::splits_for<conv3x3_tc::bf16>(B, H, W, Cin, Cout, sms, false)
-              : conv3x3_tc::splits_for<float>(B, H, W, Cin, Cout, sms, false);
+  return bf16 ? conv3x3_bf16::splits_for(B, H, W, Cin, Cout, sms, false)
+              : conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms, false);
 }
 
 // fp32 scratch (floats) a call with this shape and split count needs, in
 // fp32 or (bf16 != 0) bf16.
 extern "C" long long w2e_conv3x3_workspace(int B, int H, int W, int Cin,
                                            int Cout, int splits, int bf16) {
-  return bf16 ? conv3x3_tc::workspace_floats<conv3x3_tc::bf16>(B, H, W, Cin, Cout,
-                                                               splits, false)
-              : conv3x3_tc::workspace_floats<float>(B, H, W, Cin, Cout, splits, false);
+  return bf16 ? conv3x3_bf16::workspace_floats(B, H, W, Cin, Cout, splits, false)
+              : conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits, false);
 }
 
 // x (B,H,W,Cin), wt (3,3,Cin,Cout), bias (Cout,) or null, out (B,H,W,Cout),
@@ -57,20 +58,21 @@ extern "C" int w2e_conv3x3(const float* x, const float* wt, const float* bias,
                            int Cin, int Cout, int splits, int act, float scale,
                            void* stream) {
   const conv3x3_tc::Epilogue epi{nullptr, nullptr, 0, nullptr, bias, act};
-  return conv3x3_tc::conv3x3_tc_launch<conv3x3_k2, float>(
+  return conv3x3_tc::conv3x3_tc_launch<conv3x3_k2>(
       x, nullptr, wt, nullptr, scale, epi, out, work, B, H, W, Cin, Cout, splits,
       static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 form: x (B,H,W,Cin) and out (B,H,W,Cout) bf16, wt and bias fp32;
-// work: w2e_conv3x3_workspace(..., 1) floats.
-extern "C" int w2e_conv3x3_bf16(const conv3x3_tc::bf16* x, const float* wt,
-                                const float* bias, conv3x3_tc::bf16* out,
+// The bf16 form: x (B,H,W,Cx) with Cx = Cin rounded up to 8 (zeros past
+// Cin) and out (B,H,W,Cout) bf16, wt and bias fp32; work:
+// w2e_conv3x3_workspace(..., 1) floats.
+extern "C" int w2e_conv3x3_bf16(const conv3x3_bf16::bf16* x, const float* wt,
+                                const float* bias, conv3x3_bf16::bf16* out,
                                 float* work, int B, int H, int W, int Cin,
                                 int Cout, int splits, int act, float scale,
                                 void* stream) {
   const conv3x3_tc::Epilogue epi{nullptr, nullptr, 0, nullptr, bias, act};
-  return conv3x3_tc::conv3x3_tc_launch<conv3x3_k2, conv3x3_tc::bf16>(
-      x, nullptr, wt, nullptr, scale, epi, out, work, B, H, W, Cin, Cout, splits,
-      static_cast<cudaStream_t>(stream));
+  return conv3x3_bf16::launch<conv3x3_k2>(x, nullptr, wt, nullptr, scale, epi, out, work, B,
+                                          H, W, Cin, Cout, splits,
+                                          static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,7 @@
-// The 3x3 convolution core of K1 (modconv3x3.cu) and K2 (conv3x3.cu) on
-// Hopper's tensor cores, in two forms: fp32 in and out (3xTF32, below) and
-// bf16 in and out (one bf16 MMA; the last paragraph below); NHWC, stride 1,
-// zero padding 1, sm_90a only (wgmma).
+// The fp32 3x3 convolution core of K1 (modconv3x3.cu) and K2 (conv3x3.cu)
+// on Hopper's tensor cores: fp32 in and out (3xTF32, below), NHWC, stride
+// 1, zero padding 1, sm_90a only (wgmma). Their bf16 forms run on
+// conv3x3_bf16.cuh, which takes this core's epilogue.
 //
 //   out[b,h,w,o] = act( demod[b,o] * sum_{ky,kx,i} x[b,h+ky-1,w+kx-1,i] * style[b,i]
 //                                                  * (scale*wt[ky,kx,i,o])
@@ -72,24 +72,17 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
 #include <cstdint>
-#include <type_traits>
 
 namespace conv3x3_tc {
 
 constexpr int kThreads = 256;  // two warpgroups
 constexpr int BM = 128;        // output pixels per block
-using bf16 = __nv_bfloat16;
-
-// Per element type: CK input channels per chunk (one MMA depth per tap) and
-// the parts each weight is kept in (fp32: big and small TF32 parts).
-template <class T> struct Elem;
-template <> struct Elem<float> { static constexpr int CK = 8, parts = 2; };
-template <> struct Elem<bf16> { static constexpr int CK = 16, parts = 1; };
+constexpr int CK = 8;          // input channels per chunk (one MMA depth per tap)
+constexpr int kParts = 2;      // each weight kept as its big and small TF32 parts
 
 constexpr int kMaxSmem = 232448;  // bytes a block may use on the H100
 constexpr int kMinChunks = 2;     // chunks per split at least
@@ -164,7 +157,7 @@ __device__ __forceinline__ void fence_operand(float (&v)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(v[i]) :: "memory");
 }
 
-// Descriptor of a K-major BN x 8 tf32 (or BN x 16 bf16) tile in the unswizzled core-matrix
+// Descriptor of a K-major BN x 8 tf32 tile in the unswizzled core-matrix
 // layout: core matrix (8 rows of N, 16 bytes of K) (nb, kh) at byte
 // (2*nb + kh)*128 from the tile's start. Leading byte offset (between the
 // two K halves) 128, stride byte offset (between groups of 8 rows) 256,
@@ -237,82 +230,6 @@ __device__ __forceinline__ void mma<128>(float (&d)[64], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-// The bf16 form: acc(64 x BN) = A(64 x 16 bf16, from registers, packed in
-// pairs) * B(16 x BN bf16, K-major in shared memory via desc) + (scale_d ?
-// acc : 0), fp32 accumulate. The last immediate (0) keeps B K-major.
-#define W2E_D8(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), \
-                  "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define W2E_A_DESC "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d)
-
-template <int BN>
-__device__ __forceinline__ void mma_bf16(float (&d)[BN / 2], const uint32_t (&a)[4],
-                                         uint64_t desc, int scale_d);
-
-template <>
-__device__ __forceinline__ void mma_bf16<32>(float (&d)[16], const uint32_t (&a)[4],
-                                              uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : W2E_D8(0), W2E_D8(8)
-      : W2E_A_DESC);
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16<64>(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : W2E_D8(0), W2E_D8(8), W2E_D8(16), W2E_D8(24)
-      : W2E_A_DESC);
-}
-
-template <>
-__device__ __forceinline__ void mma_bf16<128>(float (&d)[64], const uint32_t (&a)[4],
-                                               uint64_t desc, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : W2E_D8(0), W2E_D8(8), W2E_D8(16), W2E_D8(24),
-        W2E_D8(32), W2E_D8(40), W2E_D8(48), W2E_D8(56)
-      : W2E_A_DESC);
-}
-#undef W2E_D8
-#undef W2E_A_DESC
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// round(v * s) of a packed bf16 pair (low half: the lower channel), the
-// product taken in fp32, where it is exact
-__device__ __forceinline__ uint32_t modulate_bf16x2(uint32_t v, float s_lo, float s_hi) {
-  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
-  return bf16x2_bits(__floats2bfloat162_rn(f.x * s_lo, f.y * s_hi));
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// a value of the output type from the fp32 epilogue
-template <class T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_float<bf16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 // two neighbouring output values (channels n, n + 1) at p[i]: one store
 // when `pair` (the pair is aligned), else one or two (`second`: n + 1 is
 // in range)
@@ -323,16 +240,6 @@ __device__ __forceinline__ void store2(float* p, size_t i, float a, float b,
   } else {
     p[i] = a;
     if (second) p[i + 1] = b;
-  }
-}
-
-__device__ __forceinline__ void store2(bf16* p, size_t i, float a, float b,
-                                       bool pair, bool second) {
-  if (pair) {
-    *reinterpret_cast<__nv_bfloat162*>(p + i) = __floats2bfloat162_rn(a, b);
-  } else {
-    p[i] = __float2bfloat16_rn(a);
-    if (second) p[i + 1] = __float2bfloat16_rn(b);
   }
 }
 
@@ -352,7 +259,6 @@ template <class Kind>
 __global__ void __launch_bounds__(256)
 conv3x3_tc_prep(const float* __restrict__ wt, float scale, float* __restrict__ wp,
                 int Cin, int Cout, int BN, int chunks, int total) {
-  constexpr int CK = Elem<float>::CK;
   // 32-bit index arithmetic (a 64-bit division by a run-time value costs
   // more than the element's bytes); the host keeps total under 2^31
   const unsigned e = blockIdx.x * 256u + threadIdx.x;
@@ -389,48 +295,6 @@ conv3x3_tc_prep(const float* __restrict__ wt, float scale, float* __restrict__ w
       make_float4(small[0], small[1], small[2], small[3]);
 }
 
-// The bf16 form: round(scale * wt) into
-// wp[n_tile][chunk][tap][nb][kh][r][j], the element of output channel
-// n_tile*BN + 8*nb + r and input channel chunk*16 + 4*(j/2) + 2*kh + j%2
-// (K position 8*kh + j; see the header). One thread per (n_tile, chunk,
-// tap, nb, kh, r) writes its eight j as one 16-byte store.
-// (kernels/common.py::tc_prepared_plain with dtype bf16 is its plain twin.)
-template <class Kind>
-__global__ void __launch_bounds__(256)
-conv3x3_tc_prep_bf16(const float* __restrict__ wt, float scale, bf16* __restrict__ wp,
-                     int Cin, int Cout, int BN, int chunks, int total) {
-  constexpr int CK = Elem<bf16>::CK;
-  const unsigned e = blockIdx.x * 256u + threadIdx.x;
-  if (e >= static_cast<unsigned>(total)) return;
-  const int r = static_cast<int>(e % 8);
-  unsigned rest = e / 8;
-  const int kh = static_cast<int>(rest % 2);
-  rest /= 2;
-  const unsigned nbs = static_cast<unsigned>(BN / 8);
-  const int nb = static_cast<int>(rest % nbs);
-  rest /= nbs;
-  const int tap = static_cast<int>(rest % 9);
-  rest /= 9;
-  const int chunk = static_cast<int>(rest % static_cast<unsigned>(chunks));
-  const int nt = static_cast<int>(rest / static_cast<unsigned>(chunks));
-  const int n = nt * BN + nb * 8 + r;
-  uint32_t packed[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {  // j = 2q, 2q + 1
-    float v[2];
-#pragma unroll
-    for (int lo = 0; lo < 2; ++lo) {
-      const int ci = chunk * CK + 4 * q + 2 * kh + lo;
-      v[lo] = (n < Cout && ci < Cin) ? wt[((size_t)tap * Cin + ci) * Cout + n] * scale : 0.f;
-    }
-    packed[q] = bf16x2_bits(__floats2bfloat162_rn(v[0], v[1]));
-  }
-  const size_t base = (((size_t)nt * chunks + chunk) * 9 + tap) * BN * CK;
-  const int within = ((nb * 2 + kh) * 8 + r) * 8;
-  *reinterpret_cast<uint4*>(wp + base + within) =
-      make_uint4(packed[0], packed[1], packed[2], packed[3]);
-}
-
 // The block's pixel tile.
 struct Tile {
   int th, tw, ni;         // rows and columns of the patch; images per block
@@ -451,11 +315,8 @@ inline Tile make_tile(int B, int H, int W) {
   return t;
 }
 
-// a stage's weights, in elements of T
-template <class T>
-__host__ __device__ constexpr int b_elems(int BN) {
-  return 9 * Elem<T>::parts * BN * Elem<T>::CK;
-}
+// a stage's weights, in floats
+__host__ __device__ constexpr int b_elems(int BN) { return 9 * kParts * BN * CK; }
 
 constexpr int kStages = 2;  // of the cp.async ring
 
@@ -464,13 +325,10 @@ constexpr int kStages = 2;  // of the cp.async ring
 // loads and barriers (the registers then allowed: 64 at BN = 32, 128 at 64)
 __host__ __device__ constexpr int min_blocks(int BN) { return BN == 32 ? 4 : BN == 64 ? 2 : 1; }
 
-// a stage: the weights and the halo'd input patch (T) and, when modulated,
-// the chunk's style rows of the block's images (fp32); bytes, 128-byte
-// aligned
-template <class T>
+// a stage: the weights, the halo'd input patch and, when modulated, the
+// chunk's style rows of the block's images; bytes, 128-byte aligned
 __host__ __device__ inline int stage_bytes(int BN, const Tile& t, bool modulated) {
-  constexpr int CK = Elem<T>::CK;
-  return static_cast<int>(((b_elems<T>(BN) + t.halo * CK) * sizeof(T)
+  return static_cast<int>(((b_elems(BN) + t.halo * CK) * sizeof(float)
                            + (modulated ? t.ni * CK * sizeof(float) : 0) + 127)
                           / 128 * 128);
 }
@@ -500,27 +358,24 @@ __device__ __forceinline__ float finish(float v, const Epilogue e, float nz, int
 
 
 // One block: pixel tile blockIdx.x, Cout tile blockIdx.y, chunk range
-// blockIdx.z. VEC: a row of Cin is whole 16-byte copies (Cin % 4 == 0 in
-// fp32, Cin % 8 == 0 in bf16), else one value at a time. Kind::modulated:
-// x is multiplied by style (B, Cin), or by 1 where style is null. T: float
-// (3xTF32) or bf16 (one bf16 MMA per tap, see the header).
-template <int BN, bool VEC, class Kind, class T>
+// blockIdx.z. VEC: a row of Cin is whole 16-byte copies (Cin % 4 == 0),
+// else one value at a time. Kind::modulated: x is multiplied by style (B,
+// Cin), or by 1 where style is null.
+template <int BN, bool VEC, class Kind>
 __global__ void __launch_bounds__(kThreads, min_blocks(BN))
-conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
-                  const T* __restrict__ wp, Epilogue epi,
-                  T* __restrict__ out, float* __restrict__ partial, int B,
+conv3x3_tc_kernel(const float* __restrict__ x, const float* __restrict__ style,
+                  const float* __restrict__ wp, Epilogue epi,
+                  float* __restrict__ out, float* __restrict__ partial, int B,
                   int H, int W, int Cin, int Cout, Tile tile, int chunks,
                   int chunks_per_split) {
   constexpr bool MOD = Kind::modulated;
-  constexpr bool BF16 = std::is_same<T, bf16>::value;
-  constexpr int CK = Elem<T>::CK;
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int BE = b_elems<T>(BN);
+  constexpr int BE = b_elems(BN);
   const int halo_w = tile.tw + 2;
   const int halo_img = (tile.th + 2) * halo_w;
-  const int sb = stage_bytes<T>(BN, tile, MOD);
+  const int sb = stage_bytes(BN, tile, MOD);
   // the style rows, in bytes from a stage's start
-  const int style_at = static_cast<int>((BE + tile.halo * CK) * sizeof(T));
+  const int style_at = static_cast<int>((BE + tile.halo * CK) * sizeof(float));
 
   const int mt = blockIdx.x;
   const int nt = blockIdx.y;
@@ -538,8 +393,7 @@ conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
   const int row0 = (tid / 128) * 64 + ((tid / 32) % 4) * 16 + g;  // M row of a0
   const int tile_px = tile.th * tile.tw;
   // the channels of a row's fragment values inside a chunk: 2t, 2t + 1
-  // (fp32), 4t .. 4t + 3 (bf16)
-  constexpr int FRAG = BF16 ? 4 : 2;
+  constexpr int FRAG = 2;
 
   // halo position of tap (0, 0) for the fragment's two rows (row0, row0 + 8),
   // and where the row's style values sit among the stage's style rows
@@ -559,16 +413,16 @@ conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
     }
   }
 
-  const T* wtile = wp + (size_t)nt * chunks * BE;
-  constexpr int W16 = 16 / sizeof(T);  // values per 16-byte copy
+  const float* wtile = wp + (size_t)nt * chunks * BE;
+  constexpr int W16 = 4;               // values per 16-byte copy
   constexpr int PER = VEC ? W16 : 1;   // values per copy of x
   constexpr int SPER = VEC ? 4 : 1;    // values per copy of the style
 
   auto load_stage = [&](int chunk, unsigned char* st) {
-    T* ws = reinterpret_cast<T*>(st);
-    const T* src = wtile + (size_t)chunk * BE;
+    float* ws = reinterpret_cast<float*>(st);
+    const float* src = wtile + (size_t)chunk * BE;
     for (int i = tid; i < BE / W16; i += kThreads) cp_async16(ws + W16 * i, src + W16 * i, true);
-    T* as = ws + BE;
+    float* as = ws + BE;
     const int c0 = chunk * CK;
     for (int i = tid; i < tile.halo * (CK / PER); i += kThreads) {
       const int k = (i % (CK / PER)) * PER;
@@ -580,10 +434,9 @@ conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
       const int ww = w0 + rem % halo_w - 1;
       const int ci = c0 + k;
       const bool ok = b < B && hh >= 0 && hh < H && ww >= 0 && ww < W && ci < Cin;
-      const T* s = ok ? x + (((size_t)b * H + hh) * W + ww) * Cin + ci : x;
+      const float* s = ok ? x + (((size_t)b * H + hh) * W + ww) * Cin + ci : x;
       if constexpr (VEC) cp_async16(as + pos * CK + k, s, ok);
-      else if constexpr (!BF16) cp_async4(as + pos * CK + k, s, ok);
-      else as[pos * CK + k] = ok ? *s : from_float<T>(0.f);  // no 2-byte cp.async
+      else cp_async4(as + pos * CK + k, s, ok);
     }
     if constexpr (MOD) {
       // the style rows of the block's images: zero past B and Cin, where
@@ -637,70 +490,39 @@ conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
     if (c + S - 1 < c_end)  // into the stage chunk c - 1 used
       load_stage(c + S - 1, smem + ((c + S - 1 - c_begin) % S) * sb);
     cp_async_commit();
-    const T* wst = reinterpret_cast<const T*>(st);
-    const T* as = wst + BE;
+    const float* wst = reinterpret_cast<const float*>(st);
+    const float* as = wst + BE;
     const float* ss = reinterpret_cast<const float*>(st + style_at);
-    if constexpr (BF16) {
-      // the two rows' style for channels 4t .. 4t + 3, rounded to bf16 as
-      // the TPU kernel rounds it, once a chunk
-      float4 s0 = make_float4(1.f, 1.f, 1.f, 1.f), s1 = s0;
-      if constexpr (MOD) {
-        s0 = *reinterpret_cast<const float4*>(ss + spos[0]);
-        s1 = *reinterpret_cast<const float4*>(ss + spos[1]);
-        s0 = make_float4(round_bf16(s0.x), round_bf16(s0.y), round_bf16(s0.z), round_bf16(s0.w));
-        s1 = make_float4(round_bf16(s1.x), round_bf16(s1.y), round_bf16(s1.z), round_bf16(s1.w));
-      }
+    // the two rows' style for channels 2t (.x) and 2t + 1 (.y), once a chunk
+    float2 s0 = make_float2(1.f, 1.f), s1 = s0;
+    if constexpr (MOD) {
+      s0 = *reinterpret_cast<const float2*>(ss + spos[0]);
+      s1 = *reinterpret_cast<const float2*>(ss + spos[1]);
+    }
 #pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * halo_w + tap % 3;
-        uint2 v0 = *reinterpret_cast<const uint2*>(as + (hpos[0] + off) * CK + 4 * t);
-        uint2 v1 = *reinterpret_cast<const uint2*>(as + (hpos[1] + off) * CK + 4 * t);
-        if constexpr (MOD) {
-          v0 = make_uint2(modulate_bf16x2(v0.x, s0.x, s0.y), modulate_bf16x2(v0.y, s0.z, s0.w));
-          v1 = make_uint2(modulate_bf16x2(v1.x, s1.x, s1.y), modulate_bf16x2(v1.y, s1.z, s1.w));
-        }
-        // fragment a0..a3 = (row0, k 2t..2t+1), (row0 + 8, 2t..2t+1),
-        // (row0, 2t+8..2t+9), (row0 + 8, 2t+8..2t+9): channels 4t, 4t + 1
-        // and 4t + 2, 4t + 3 of each row
-        const uint32_t a[4] = {v0.x, v1.x, v0.y, v1.y};
-        const uint64_t d = tile_desc(wst + tap * BN * CK);
-        wgmma_fence();
-        mma_bf16<BN>(part, a, d, tap > 0);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous tap's fragments are free again
+    for (int tap = 0; tap < 9; ++tap) {
+      const int off = (tap / 3) * halo_w + tap % 3;
+      float2 v0 = *reinterpret_cast<const float2*>(as + (hpos[0] + off) * CK + 2 * t);
+      float2 v1 = *reinterpret_cast<const float2*>(as + (hpos[1] + off) * CK + 2 * t);
+      if constexpr (MOD) {  // modulate before the split
+        v0.x *= s0.x; v0.y *= s0.y;
+        v1.x *= s1.x; v1.y *= s1.y;
       }
-    } else {
-      // the two rows' style for channels 2t (.x) and 2t + 1 (.y), once a chunk
-      float2 s0 = make_float2(1.f, 1.f), s1 = s0;
-      if constexpr (MOD) {
-        s0 = *reinterpret_cast<const float2*>(ss + spos[0]);
-        s1 = *reinterpret_cast<const float2*>(ss + spos[1]);
-      }
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int off = (tap / 3) * halo_w + tap % 3;
-        float2 v0 = *reinterpret_cast<const float2*>(as + (hpos[0] + off) * CK + 2 * t);
-        float2 v1 = *reinterpret_cast<const float2*>(as + (hpos[1] + off) * CK + 2 * t);
-        if constexpr (MOD) {  // modulate before the split
-          v0.x *= s0.x; v0.y *= s0.y;
-          v1.x *= s1.x; v1.y *= s1.y;
-        }
-        // fragment a0..a3 = (row0, t), (row0 + 8, t), (row0, t + 4), (row0 + 8, t + 4)
-        uint32_t big[4], small[4];
-        split_tf32(v0.x, big[0], small[0]);
-        split_tf32(v1.x, big[1], small[1]);
-        split_tf32(v0.y, big[2], small[2]);
-        split_tf32(v1.y, big[3], small[3]);
-        const T* wb = wst + tap * 2 * BN * CK;
-        const uint64_t d_big = tile_desc(wb);
-        const uint64_t d_small = tile_desc(wb + BN * CK);
-        wgmma_fence();
-        mma<BN>(part, small, d_big, tap > 0);
-        mma<BN>(part, big, d_small, 1);
-        mma<BN>(part, big, d_big, 1);
-        wgmma_commit();
-        wgmma_wait<1>();  // the previous tap's fragments are free again
-      }
+      // fragment a0..a3 = (row0, t), (row0 + 8, t), (row0, t + 4), (row0 + 8, t + 4)
+      uint32_t big[4], small[4];
+      split_tf32(v0.x, big[0], small[0]);
+      split_tf32(v1.x, big[1], small[1]);
+      split_tf32(v0.y, big[2], small[2]);
+      split_tf32(v1.y, big[3], small[3]);
+      const float* wb = wst + tap * 2 * BN * CK;
+      const uint64_t d_big = tile_desc(wb);
+      const uint64_t d_small = tile_desc(wb + BN * CK);
+      wgmma_fence();
+      mma<BN>(part, small, d_big, tap > 0);
+      mma<BN>(part, big, d_small, 1);
+      mma<BN>(part, big, d_big, 1);
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tap's fragments are free again
     }
     wgmma_wait<0>();
     fence_operand(part);
@@ -745,11 +567,11 @@ conv3x3_tc_kernel(const T* __restrict__ x, const float* __restrict__ style,
 }
 
 // Split-K second pass: one thread per output element sums the splits in
-// order, then applies the epilogue and stores in the output's type.
-template <class Kind, class T>
+// order, then applies the epilogue.
+template <class Kind>
 __global__ void __launch_bounds__(256)
 conv3x3_tc_reduce(const float* __restrict__ partial, int splits, Epilogue epi,
-                  T* __restrict__ out, long long n, int HW, int Cout) {
+                  float* __restrict__ out, long long n, int HW, int Cout) {
   const long long i = (long long)blockIdx.x * 256 + threadIdx.x;
   if (i >= n) return;
   float v = 0.f;
@@ -759,7 +581,7 @@ conv3x3_tc_reduce(const float* __restrict__ partial, int splits, Epilogue epi,
   constexpr bool MOD = Kind::modulated;
   const float nz = MOD && epi.noise != nullptr
       ? *epi.noise_w * epi.noise[(size_t)b * epi.noise_bstride + pix % HW] : 0.f;
-  out[i] = from_float<T>(finish<MOD>(v, epi, nz, b, static_cast<int>(i % Cout), Cout));
+  out[i] = finish<MOD>(v, epi, nz, b, static_cast<int>(i % Cout), Cout);
 }
 
 // ---------------------------------------------------------------------------
@@ -768,78 +590,64 @@ conv3x3_tc_reduce(const float* __restrict__ partial, int splits, Epilogue epi,
 
 inline int tile_n(int Cout) { return Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128; }
 
-template <class T>
 inline size_t smem_bytes(int BN, const Tile& t, bool modulated) {
-  return static_cast<size_t>(kStages) * stage_bytes<T>(BN, t, modulated);
+  return static_cast<size_t>(kStages) * stage_bytes(BN, t, modulated);
 }
 
 // How many ways to split the chunks for this shape on a card with `sms`
 // SMs: 1 when the (pixel tile, Cout tile) grid fills the SMs, else as many
 // as keep the grid within one wave, each split at least kMinChunks chunks.
-template <class T>
 inline int splits_for(int B, int H, int W, int Cin, int Cout, int sms, bool modulated) {
   const Tile t = make_tile(B, H, W);
   const int BN = tile_n(Cout);
   const int base = t.m_tiles * cdiv(Cout, BN);
   if (base >= sms) return 1;
   const int per_sm = std::max(1, std::min(2048 / kThreads,
-      kMaxSmem / (int)(smem_bytes<T>(BN, t, modulated) + 1024)));
-  const int chunks = cdiv(Cin, Elem<T>::CK);
+      kMaxSmem / (int)(smem_bytes(BN, t, modulated) + 1024)));
+  const int chunks = cdiv(Cin, CK);
   const int splits = std::min(per_sm * sms / base, chunks / kMinChunks);
   return splits < 2 ? 1 : cdiv(chunks, cdiv(chunks, splits));
 }
 
-// values of T in the prepared weights of a (Cin, Cout) layer
-template <class T>
-inline long long prepared_elems(int Cin, int Cout) {
-  const int BN = tile_n(Cout);
-  return (long long)cdiv(Cout, BN) * cdiv(Cin, Elem<T>::CK) * b_elems<T>(BN);
-}
-
-// the same in floats (whole: a multiple of 8 values of T)
-template <class T>
+// floats in the prepared weights of a (Cin, Cout) layer
 inline long long prepared_floats(int Cin, int Cout) {
-  return prepared_elems<T>(Cin, Cout) * (long long)sizeof(T) / (long long)sizeof(float);
+  const int BN = tile_n(Cout);
+  return (long long)cdiv(Cout, BN) * cdiv(Cin, CK) * b_elems(BN);
 }
 
 // fp32 scratch a call needs: the prepared weights unless the caller passes
 // its own, then (splits > 1) the split-K partial sums.
-template <class T>
 inline long long workspace_floats(int B, int H, int W, int Cin, int Cout, int splits,
                                   bool prepared) {
-  return (prepared ? 0 : prepared_floats<T>(Cin, Cout))
+  return (prepared ? 0 : prepared_floats(Cin, Cout))
       + (splits > 1 ? (long long)splits * B * H * W * Cout : 0);
 }
 
-// The weights of a (Cin, Cout) layer into wp (prepared_elems<T> values).
-template <class Kind, class T>
-int prepare(const float* wt, float scale, T* wp, int Cin, int Cout, cudaStream_t s) {
+// The weights of a (Cin, Cout) layer into wp (prepared_floats values).
+template <class Kind>
+int prepare(const float* wt, float scale, float* wp, int Cin, int Cout, cudaStream_t s) {
   const int BN = tile_n(Cout);
-  const int chunks = cdiv(Cin, Elem<T>::CK);
-  // threads: 8 values (fp32: 4 q x (big, small)) each
-  const long long n = prepared_elems<T>(Cin, Cout) / 8;
+  const int chunks = cdiv(Cin, CK);
+  // threads: 8 values (4 q x (big, small)) each
+  const long long n = prepared_floats(Cin, Cout) / 8;
   if (n >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (std::is_same<T, bf16>::value)
-    conv3x3_tc_prep_bf16<Kind><<<cdiv(n, 256), 256, 0, s>>>(wt, scale, wp, Cin, Cout, BN,
-                                                             chunks, static_cast<int>(n));
-  else
-    conv3x3_tc_prep<Kind><<<cdiv(n, 256), 256, 0, s>>>(wt, scale, wp, Cin, Cout, BN,
-                                                        chunks, static_cast<int>(n));
+  conv3x3_tc_prep<Kind><<<cdiv(n, 256), 256, 0, s>>>(wt, scale, wp, Cin, Cout, BN,
+                                                      chunks, static_cast<int>(n));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, bool VEC, class Kind, class T>
-int launch_tiles(const T* x, const float* style, const T* wp,
-                 const Epilogue& epi, T* out, float* partial, int B, int H,
+template <int BN, bool VEC, class Kind>
+int launch_tiles(const float* x, const float* style, const float* wp,
+                 const Epilogue& epi, float* out, float* partial, int B, int H,
                  int W, int Cin, int Cout, int splits, cudaStream_t s) {
   const Tile t = make_tile(B, H, W);
-  const size_t smem = smem_bytes<T>(BN, t, Kind::modulated);
+  const size_t smem = smem_bytes(BN, t, Kind::modulated);
   if (smem > (size_t)kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = conv3x3_tc_kernel<BN, VEC, Kind, T>;
+  auto kernel = conv3x3_tc_kernel<BN, VEC, Kind>;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (rc != cudaSuccess) return static_cast<int>(rc);
-  const int chunks = cdiv(Cin, Elem<T>::CK);
+  const int chunks = cdiv(Cin, CK);
   const dim3 grid(t.m_tiles, cdiv(Cout, BN), splits);
   kernel<<<grid, kThreads, smem, s>>>(x, style, wp, epi, out,
                                       splits > 1 ? partial : nullptr, B, H, W,
@@ -849,41 +657,41 @@ int launch_tiles(const T* x, const float* style, const T* wp,
 
 // The whole convolution: the weight preparation (unless `wp` holds weights
 // prepared earlier from the same wt and scale), the tiled kernel and, with
-// splits > 1 (from splits_for<T>), the reduce pass. `work` is fp32 scratch
-// of workspace_floats<T>(..., wp != nullptr) floats (null where that is 0),
+// splits > 1 (from splits_for), the reduce pass. `work` is fp32 scratch
+// of workspace_floats(..., wp != nullptr) floats (null where that is 0),
 // the prepared weights first; x, style, wt, wp and work 16-byte aligned
 // (checked by the Python wrappers). Returns the launches'
 // cudaGetLastError().
-template <class Kind, class T>
-int conv3x3_tc_launch(const T* x, const float* style, const float* wt,
-                      const T* wp, float scale, const Epilogue& epi,
-                      T* out, float* work, int B, int H, int W, int Cin,
+template <class Kind>
+int conv3x3_tc_launch(const float* x, const float* style, const float* wt,
+                      const float* wp, float scale, const Epilogue& epi,
+                      float* out, float* work, int B, int H, int W, int Cin,
                       int Cout, int splits, cudaStream_t s) {
   if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
   float* partial = work;
   int rc = 0;
   if (wp == nullptr) {
     if (work == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    rc = prepare<Kind, T>(wt, scale, reinterpret_cast<T*>(work), Cin, Cout, s);
+    rc = prepare<Kind>(wt, scale, work, Cin, Cout, s);
     if (rc != 0) return rc;
-    wp = reinterpret_cast<const T*>(work);
-    partial = work + prepared_floats<T>(Cin, Cout);
+    wp = work;
+    partial = work + prepared_floats(Cin, Cout);
   }
   if (splits > 1 && partial == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   const int BN = tile_n(Cout);
-  const bool vec = Cin % (16 / (int)sizeof(T)) == 0;
+  const bool vec = Cin % 4 == 0;
 #define W2E_TC_CASE(N)                                                             \
   if (BN == N)                                                                     \
-    rc = vec ? launch_tiles<N, true, Kind, T>(x, style, wp, epi, out, partial, B,  \
-                                              H, W, Cin, Cout, splits, s)          \
-             : launch_tiles<N, false, Kind, T>(x, style, wp, epi, out, partial, B, \
-                                               H, W, Cin, Cout, splits, s);
+    rc = vec ? launch_tiles<N, true, Kind>(x, style, wp, epi, out, partial, B,     \
+                                           H, W, Cin, Cout, splits, s)             \
+             : launch_tiles<N, false, Kind>(x, style, wp, epi, out, partial, B,    \
+                                            H, W, Cin, Cout, splits, s);
   W2E_TC_CASE(32) W2E_TC_CASE(64) W2E_TC_CASE(128)
 #undef W2E_TC_CASE
   if (rc != 0 || splits == 1) return rc;
   const long long n = (long long)B * H * W * Cout;
-  conv3x3_tc_reduce<Kind, T><<<cdiv(n, 256), 256, 0, s>>>(partial, splits, epi, out,
-                                                           n, H * W, Cout);
+  conv3x3_tc_reduce<Kind><<<cdiv(n, 256), 256, 0, s>>>(partial, splits, epi, out,
+                                                        n, H * W, Cout);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,14 +22,16 @@
 //
 // The bf16 form (w2e_modconv3x3_bf16, w2e_modconv3x3_bf16_prep) is the TPU
 // kernel's own arithmetic: bf16 x and out, the style rounded to bf16 and
-// multiplied into the staged rows with one more rounding, the weights
-// rounded to bf16, one bf16 MMA per 16 channels of a tap summed in fp32,
-// and the fp32 epilogue before the single bf16 store. Bound on the H100:
-// operations at the bf16 rate from 64^2 up, bytes below.
+// multiplied into the staged input with one more rounding, the weights
+// rounded to bf16, fp32 sums, and the fp32 epilogue before the single bf16
+// store. It runs on the bf16 core, conv3x3_bf16.cuh (shared with K2's bf16
+// form: a persistent, warp-specialised TMA + wgmma implicit GEMM; its
+// header says what bounds it and what the design does about it).
 
+#include "conv3x3_bf16.cuh"
 #include "conv3x3_tc.cuh"
 
-// K1's kernels on the shared core: names of their own, modulated input
+// K1's kernels on the shared cores: names of their own, modulated input
 struct modconv3x3_k1 {
   static constexpr bool modulated = true;
 };
@@ -38,22 +40,20 @@ struct modconv3x3_k1 {
 // SMs, in fp32 or (bf16 != 0) bf16.
 extern "C" int w2e_modconv3x3_splits(int B, int H, int W, int Cin, int Cout,
                                      int sms, int bf16) {
-  return bf16 ? conv3x3_tc::splits_for<conv3x3_tc::bf16>(B, H, W, Cin, Cout, sms, true)
-              : conv3x3_tc::splits_for<float>(B, H, W, Cin, Cout, sms, true);
+  return bf16 ? conv3x3_bf16::splits_for(B, H, W, Cin, Cout, sms, true)
+              : conv3x3_tc::splits_for(B, H, W, Cin, Cout, sms, true);
 }
 
 // fp32 scratch (floats) a call with this shape and split count needs: with
 // `prepared` set the caller passes its weights prepared, and the scratch
 // holds only the split-K partial sums (0 floats without a split). bf16 !=
-// 0: the bf16 form, whose prepared weights (bf16) take half the bytes per
-// weight.
+// 0: the bf16 form, whose prepared weights (bf16, one part) take a quarter
+// of the bytes per weight.
 extern "C" long long w2e_modconv3x3_workspace(int B, int H, int W, int Cin,
                                               int Cout, int splits,
                                               int prepared, int bf16) {
-  return bf16 ? conv3x3_tc::workspace_floats<conv3x3_tc::bf16>(B, H, W, Cin, Cout,
-                                                               splits, prepared != 0)
-              : conv3x3_tc::workspace_floats<float>(B, H, W, Cin, Cout, splits,
-                                                    prepared != 0);
+  return bf16 ? conv3x3_bf16::workspace_floats(B, H, W, Cin, Cout, splits, prepared != 0)
+              : conv3x3_tc::workspace_floats(B, H, W, Cin, Cout, splits, prepared != 0);
 }
 
 // The weights wt (3,3,Cin,Cout) prepared into wp, of
@@ -62,16 +62,16 @@ extern "C" long long w2e_modconv3x3_workspace(int B, int H, int W, int Cin,
 // cudaGetLastError().
 extern "C" int w2e_modconv3x3_prep(const float* wt, float* wp, int Cin, int Cout,
                                    void* stream) {
-  return conv3x3_tc::prepare<modconv3x3_k1, float>(wt, 1.f, wp, Cin, Cout,
-                                                   static_cast<cudaStream_t>(stream));
+  return conv3x3_tc::prepare<modconv3x3_k1>(wt, 1.f, wp, Cin, Cout,
+                                            static_cast<cudaStream_t>(stream));
 }
 
 // The bf16 form: wt (3,3,Cin,Cout) fp32 rounded to bf16 and tiled into wp,
 // of w2e_modconv3x3_workspace(1, 1, 1, Cin, Cout, 1, 0, 1) floats.
-extern "C" int w2e_modconv3x3_bf16_prep(const float* wt, conv3x3_tc::bf16* wp,
+extern "C" int w2e_modconv3x3_bf16_prep(const float* wt, conv3x3_bf16::bf16* wp,
                                         int Cin, int Cout, void* stream) {
-  return conv3x3_tc::prepare<modconv3x3_k1, conv3x3_tc::bf16>(
-      wt, 1.f, wp, Cin, Cout, static_cast<cudaStream_t>(stream));
+  return conv3x3_bf16::prepare<modconv3x3_k1>(wt, 1.f, wp, Cin, Cout,
+                                              static_cast<cudaStream_t>(stream));
 }
 
 // x (B,H,W,Cin), style (B,Cin) or null, wt (3,3,Cin,Cout), wp: wt prepared
@@ -90,22 +90,23 @@ extern "C" int w2e_modconv3x3(const float* x, const float* style,
                               int H, int W, int Cin, int Cout, int splits,
                               int act, void* stream) {
   const conv3x3_tc::Epilogue epi{demod, noise, noise_bstride, noise_w, bias, act};
-  return conv3x3_tc::conv3x3_tc_launch<modconv3x3_k1, float>(
+  return conv3x3_tc::conv3x3_tc_launch<modconv3x3_k1>(
       x, style, wt, wp, 1.f, epi, out, work, B, H, W, Cin, Cout, splits,
       static_cast<cudaStream_t>(stream));
 }
 
-// The bf16 form: x (B,H,W,Cin) and out (B,H,W,Cout) bf16, wp prepared by
-// w2e_modconv3x3_bf16_prep or null; every other operand fp32, as above.
-extern "C" int w2e_modconv3x3_bf16(const conv3x3_tc::bf16* x, const float* style,
-                                   const float* wt, const conv3x3_tc::bf16* wp,
+// The bf16 form: x (B,H,W,Cx) with Cx = Cin rounded up to 8 (zeros past
+// Cin) and out (B,H,W,Cout) bf16, wp prepared by w2e_modconv3x3_bf16_prep
+// or null; every other operand fp32, as above.
+extern "C" int w2e_modconv3x3_bf16(const conv3x3_bf16::bf16* x, const float* style,
+                                   const float* wt, const conv3x3_bf16::bf16* wp,
                                    const float* demod, const float* noise,
                                    long long noise_bstride, const float* noise_w,
-                                   const float* bias, conv3x3_tc::bf16* out,
+                                   const float* bias, conv3x3_bf16::bf16* out,
                                    float* work, int B, int H, int W, int Cin,
                                    int Cout, int splits, int act, void* stream) {
   const conv3x3_tc::Epilogue epi{demod, noise, noise_bstride, noise_w, bias, act};
-  return conv3x3_tc::conv3x3_tc_launch<modconv3x3_k1, conv3x3_tc::bf16>(
-      x, style, wt, wp, 1.f, epi, out, work, B, H, W, Cin, Cout, splits,
-      static_cast<cudaStream_t>(stream));
+  return conv3x3_bf16::launch<modconv3x3_k1>(x, style, wt, wp, 1.f, epi, out, work, B, H, W,
+                                             Cin, Cout, splits,
+                                             static_cast<cudaStream_t>(stream));
 }

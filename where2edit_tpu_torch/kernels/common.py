@@ -216,25 +216,29 @@ def tf32_rna(t: torch.Tensor) -> torch.Tensor:
 
 def tc_prepared_plain(w: torch.Tensor, scale: float = 1.0,
                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain twin of the weight preparation of ``csrc/conv3x3_tc.cuh``
-    (``conv3x3_tc_prep``), for the tests: w (3,3,Cin,Cout)·scale split into
-    big = tf32(v) and small = tf32(v - big), flat in the kernel's layout
-    [Cout tile][chunk][tap][part][nb][kh][r][q] (part 0 big, 1 small) for
-    output channel tile·BN + 8·nb + r and input channel chunk·8 + 2·q + kh,
-    zeros past Cin and Cout. BN is 32, 64 or 128 by Cout. With ``dtype``
-    bf16, the bf16 form (``conv3x3_tc_prep_bf16``): round(w·scale), no
-    split, [Cout tile][chunk][tap][nb][kh][r][j] for input channel
-    chunk·16 + 4·(j // 2) + 2·kh + j % 2."""
+    """Plain twin of the weight preparation of the tensor-core kernels, for
+    the tests. fp32 (``csrc/conv3x3_tc.cuh``, ``conv3x3_tc_prep``): w
+    (3,3,Cin,Cout)·scale split into big = tf32(v) and small = tf32(v - big),
+    flat in the kernel's layout [Cout tile][chunk][tap][part][nb][kh][r][q]
+    (part 0 big, 1 small) for output channel tile·BN + 8·nb + r and input
+    channel chunk·8 + 2·q + kh, zeros past Cin and Cout. With ``dtype``
+    bf16 (``csrc/conv3x3_bf16.cuh``, ``conv3x3_bf16_prep``): round(w·scale)
+    to bf16, no split, [Cout tile][slice][tap][n][k], K-major, for output
+    channel tile·BN + n and input channel slice·KC + k, KC 32 where Cin ≤ 32,
+    else 64 (the bf16 core's ``slice_k``). BN is 32, 64 or 128 by Cout in
+    both, and in bf16 256 where Cout > 128 and Cin ≤ 128 (the bf16 core's
+    ``tile_n``: one accumulator over K there)."""
     cin, cout = w.shape[2], w.shape[3]
     bn = 32 if cout <= 32 else 64 if cout <= 64 else 128
     if dtype == torch.bfloat16:
-        chunks, tiles = -(-cin // 16), -(-cout // bn)
-        v = torch.zeros(9, chunks * 16, tiles * bn, dtype=torch.float32)
+        bn = 256 if cout > 128 and cin <= 128 else bn
+        kc = 32 if cin <= 32 else 64
+        slices, tiles = -(-cin // kc), -(-cout // bn)
+        v = torch.zeros(9, slices * kc, tiles * bn, dtype=torch.float32)
         v[:, :cin, :cout] = (w.float().cpu() * scale).reshape(9, cin, cout)
-        # ci = chunk·16 + 4·q + 2·kh + lo (j = 2q + lo), n = tile·bn + 8·nb + r
-        v = v.to(torch.bfloat16).reshape(9, chunks, 4, 2, 2, tiles, bn // 8, 8)
-        # (tap, chunk, q, kh, lo, tile, nb, r) -> (tile, chunk, tap, nb, kh, r, q, lo)
-        return v.permute(5, 1, 0, 6, 3, 7, 2, 4).reshape(-1)
+        v = v.to(torch.bfloat16).reshape(9, slices, kc, tiles, bn)
+        # (tap, slice, k, tile, n) -> (tile, slice, tap, n, k)
+        return v.permute(3, 1, 0, 4, 2).reshape(-1)
     chunks, tiles = -(-cin // 8), -(-cout // bn)
     v = torch.zeros(9, chunks * 8, tiles * bn, dtype=torch.float32)
     v[:, :cin, :cout] = (w.float().cpu() * scale).reshape(9, cin, cout)

@@ -4,10 +4,10 @@ Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_fused`` (body
 ``_kernel``): ``act(conv3x3(x, w·scale) + bias)``, NHWC, stride 1, pad 1,
 fp32 accumulation, act = lrelu(0.2)·√2 or none. It runs every
 non-downsampling 3x3 ``ConvLayer`` of the discriminator. Source:
-``csrc/conv3x3.cu`` on ``csrc/conv3x3_tc.cuh``: an implicit GEMM on the
-tensor cores (``wgmma``) in 3xTF32, each fp32 operand split into two TF32
-parts and each product taken as three TF32 products, which keeps fp32
-accuracy; ragged channel counts (the final conv's 512 + 1 minibatch-stddev
+``csrc/conv3x3.cu``, its fp32 form on ``csrc/conv3x3_tc.cuh``: an implicit
+GEMM on the tensor cores (``wgmma``) in 3xTF32, each fp32 operand split into
+two TF32 parts and each product taken as three TF32 products, which keeps
+fp32 accuracy; ragged channel counts (the final conv's 512 + 1 minibatch-stddev
 inputs) are zero-padded in the kernel. Bound on the H100: operations, at
 the 3xTF32 rate (see the core's header).
 
@@ -18,13 +18,17 @@ input gradient is K2 itself through the same Function (the spatially
 flipped weight with Cin and Cout swapped, no epilogue: exact for stride 1,
 pad 1), the weight and bias gradients are plain PyTorch.
 
-The bf16 form: a bf16 ``x`` launches the bf16 instantiation
-(``w2e_conv3x3_bf16``): the weights rounded to bf16 after the scale
-(round(scale·w), as the JAX layer casts them), one bf16 MMA per 16
-channels of a tap summed in fp32, the fp32 bias and activation, one
-rounding at the store; the final conv's 513 inputs are staged one value at
-a time. ``conv3x3_plain`` on a bf16 ``x`` is its twin. The input gradient
-of a bf16 call is the bf16 kernel; the weight and bias gradients are fp32.
+The bf16 form: a bf16 ``x`` launches the bf16 kernel
+(``w2e_conv3x3_bf16``) on the bf16 core ``csrc/conv3x3_bf16.cuh``, shared
+with K1's bf16 form (a persistent, warp-specialised TMA + ``wgmma``
+implicit GEMM; its header and ``kernels/modconv3x3.py`` say what bounds it
+and what the design does about it): the weights rounded to bf16 after the
+scale (round(scale·w), as the JAX layer casts them), fp32 sums, the fp32
+bias and activation, one rounding at the store; the final conv's 513
+inputs reach the kernel padded with zero channels to 520 (TMA reads whole
+16-byte rows). ``conv3x3_plain`` on a bf16 ``x`` is its twin. The input
+gradient of a bf16 call is the bf16 kernel; the weight and bias gradients
+are fp32.
 ``launches`` counts kernel launches, forward and backward alike, and
 ``launches_bf16`` those of the bf16 form among them.
 """
@@ -87,6 +91,8 @@ def _launch(x, w, scale, bias, act):
     check_cuda_tensor("w", w, (3, 3, cin, cout), dev)
     if bias is not None:
         check_cuda_tensor("bias", bias, (cout,), dev)
+    if bf and cin % 8:  # TMA reads whole 16-byte rows: zero channels to a multiple of 8
+        x = F.pad(x, (0, 8 - cin % 8))
     out = torch.empty((b, h, wd, cout), device=dev, dtype=dt)
     splits = split_count("conv3x3", b, h, wd, cin, cout, dev.index, bf)
     work = torch.empty(workspace_floats(b, h, wd, cin, cout, splits, bf),

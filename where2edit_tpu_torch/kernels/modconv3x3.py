@@ -1,8 +1,9 @@
 """K1: modulated 3x3 conv + demod + noise + bias + lrelu, one kernel.
 
 Replaces the TPU kernel ``tools/conv3x3_bench.py::conv3x3_mod_fused`` (body
-``_kernel_mod``). Source: ``csrc/modconv3x3.cu`` on ``csrc/conv3x3_tc.cuh``,
-the core K2 runs on: an implicit GEMM on the tensor cores (``wgmma``) in
+``_kernel_mod``). Source: ``csrc/modconv3x3.cu``, its fp32 form on
+``csrc/conv3x3_tc.cuh`` and its bf16 form on ``csrc/conv3x3_bf16.cuh``
+(below), the cores K2 runs on. The fp32 core is an implicit GEMM on the tensor cores (``wgmma``) in
 3xTF32, each fp32 operand split into two TF32 parts and each product taken
 as three TF32 products, which keeps fp32 accuracy. The style multiplies each
 input value before its split; demod, noise, bias and the activation are the
@@ -35,17 +36,32 @@ length penalty take a gradient of a gradient):
   ``ds = Σ w·demod·P``, ``ddemod = Σ w·s·P``;
 - noise, noise gain and bias gradients are sums of dz.
 
-The bf16 form: a bf16 ``x`` launches the kernel's bf16 instantiation
-(``w2e_modconv3x3_bf16``): bf16 in and out, one bf16 MMA per 16 channels of
-a tap summed in fp32, the style rounded to bf16 and multiplied into the
-staged rows with one more rounding, the weights rounded to bf16, the fp32
-epilogue before one rounding at the store: the arithmetic of the TPU
-kernel, which takes bf16. Every other operand stays fp32. Bound on the
-H100: operations at the bf16 tensor cores' 989 TFLOP/s from 64² up at batch
-8. ``modconv3x3_plain`` on a bf16 ``x`` is its twin: the bf16 operands
-upcast, the same roundings, fp32 arithmetic, one rounding at the end. The
-input gradient of a bf16 call is the bf16 kernel; the weight, style and
-demod gradients are taken in fp32 from the upcast operands.
+The bf16 form: a bf16 ``x`` launches the bf16 kernel
+(``w2e_modconv3x3_bf16``) on the bf16 core ``csrc/conv3x3_bf16.cuh``,
+shared with K2's bf16 form: bf16 in and out, the style rounded to bf16 and
+multiplied into the staged input with one more rounding, the weights
+rounded to bf16, fp32 sums, the fp32 epilogue before one rounding at the
+store: the arithmetic of the TPU kernel, which takes bf16. Every other
+operand stays fp32. Bound on the H100 (NVIDIA H100 80GB HBM3, 700 W):
+operations at the bf16 tensor cores' 989 TFLOP/s from 16² up at batch 8,
+bytes at 512² and 1024² (64 and 32 channels), fixed cost at 4² and 8². The
+core is a persistent, warp-specialised implicit GEMM: one producer thread
+keeps TMA loads of the halo'd input patch (once per 64-channel slice;
+TMA's zero fill is the padding) and of the weights in flight, two consumer
+warpgroups run ``wgmma`` with the tap shift taken as an address in the
+patch, the modulation is one pass per staged patch by the producer
+warpgroup's other warps, the epilogue stores whole rows (by TMA where it
+can), weights of 32 and 64 channels stay in shared memory, small grids
+split K, and where Cin > 128 each pair of K steps sums into a fresh
+tensor-core accumulator added in fp32 (the tensor cores truncate their own
+sums; see the core's header). A Cin that is not a multiple of 8 reaches
+the kernel padded with zero channels (TMA reads whole 16-byte rows).
+``modconv3x3_plain`` on a bf16 ``x`` is its twin: the bf16 operands
+upcast, the same roundings, fp32 arithmetic, one rounding at the end;
+``tests/test_torch_kernels_bf16.py`` holds a twin of the core's work
+decomposition. The input gradient of a bf16 call is the bf16 kernel; the
+weight, style and demod gradients are taken in fp32 from the upcast
+operands.
 
 ``launches`` counts convolution launches, forward and backward alike, and
 ``launches_bf16`` those of the bf16 form among them; ``prepares`` counts
@@ -117,7 +133,7 @@ def workspace_floats(b, h, wd, cin, cout, splits, prepared, bf16=False) -> int:
 def prepared_size(cin, cout, dtype=torch.float32) -> int:
     """Values (of ``dtype``) of a (Cin, Cout) layer's prepared weights:
     fp32 split in two TF32 parts, or bf16 (2·9·Cin·Cout floats against
-    9·Cin·Cout bf16 values, padded: a quarter of the bytes)."""
+    9·Cin·Cout bf16 values, each padded to its tiles)."""
     bf = dtype == torch.bfloat16
     floats = workspace_floats(1, 1, 1, cin, cout, 1, False, bf)
     return 2 * floats if bf else floats
@@ -174,6 +190,8 @@ def _launch(x, style, w, demod, noise, noise_weight, bias, act, prepared):
         noise_bstride = 0 if nb == 1 else h * wd
     if bias is not None:
         check_cuda_tensor("bias", bias, (cout,), dev)
+    if bf and cin % 8:  # TMA reads whole 16-byte rows: zero channels to a multiple of 8
+        x = F.pad(x, (0, 8 - cin % 8))
     out = torch.empty((b, h, wd, cout), device=dev, dtype=dt)
     splits = split_count("modconv3x3", b, h, wd, cin, cout, dev.index, bf)
     n_work = workspace_floats(b, h, wd, cin, cout, splits, prepared is not None, bf)
