@@ -13,8 +13,8 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    nvcc for sm_90a (in parallel) and prints the build seconds and ptxas'
    register / shared-memory report; checks with ``cuobjdump --dump-sass``
    that K1's and K2's libraries (both on ``csrc/conv3x3_tc.cuh``, fp32, and
-   ``csrc/conv3x3_bf16.cuh``, bf16) hold tensor-core (``HGMMA``)
-   instructions.
+   ``csrc/conv3x3_bf16.cuh``, bf16) and K3's (its bf16 form) hold
+   tensor-core (``HGMMA``) instructions.
 3. kernels — every shape the 1024² edit path gives K1 (``modconv3x3``) and
    K3 (``modconv1x1``) at batch 1, every shape the 1024² discriminator
    gives K2 (``conv3x3``) at batch 8, and K3's ToRGB shapes again at the
@@ -35,12 +35,15 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    K1-bf16 at the generator's 9 shapes and K2-bf16 at the
    discriminator's 9 (final_conv's 513 inputs included), each at batch 1,
    2, 4 and 8, K3-bf16 at the 28 edit-path 1x1 shapes at batch 1 with fp32
-   and with bf16 output, at the 9 ToRGBs at batch 8 and 2 with fp32 output
-   and at the attention trainer's 18 bf16-input mapper convs at batch 8
-   with bf16 output; the kernels line sums the shapes the bf16 trainers
+   and with bf16 output, at the 9 ToRGBs at batch 8 and 2 with fp32 output,
+   at the attention trainer's 18 bf16-input mapper convs at batch 8 with
+   bf16 output and at its core's tile edges (P = 16 and 64, batch 1 and 8,
+   both outputs); the kernels line sums the shapes the bf16 trainers
    launch; max |Δ| / max
    |twin| <= 8e-3, K1-bf16 prepared against per call bitwise, ms, device
-   ms, the bf16 bound (2 bytes per bf16 value; K1 and K2 at 989 TFLOP/s),
+   ms, the bf16 bound (2 bytes per bf16 value; operations at the tensor
+   cores' 989 TFLOP/s for all three kernels: K3-bf16's ToRGBs sum on the
+   FMA units but are bound by their bytes),
    the twin's ms and the library's bf16 ms; a device time under 0.95 of
    its bound fails.
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
@@ -548,7 +551,7 @@ def phase_build() -> None:
                             if "registers" in ln or "Compiling entry" in ln
                             or "spill" in ln]
     hgmma = {}
-    for name in ("modconv3x3", "conv3x3"):  # K1 and K2, on the tensor-core core
+    for name in common.KERNEL_SOURCES:  # K1, K2 and K3-bf16 run wgmma
         sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass",
                                str(common.library_path(name))],
                               capture_output=True, text=True, timeout=120,
@@ -780,13 +783,16 @@ def phase_kernels_bf16() -> dict:
     bf16 trainers launch it: the 9 ToRGBs at batch 8 and 2 with fp32 output,
     and the attention trainer's mapper convs (``TRAIN_ATTENTION_LAYER``, bar
     ``attention_first``, whose input is the generator's fp32 constant and
-    takes the fp32 form) at batch 8 with bf16 output: the kernel against its
+    takes the fp32 form) at batch 8 with bf16 output, then at its core's
+    tile edges (P = 16 and 64, a mapper conv and a ToRGB, batch 1 and 8,
+    both outputs): the kernel against its
     plain twin (``BF16_KERNEL_REL_TOL``), K1 prepared against per call
     (bitwise), the kernel's, the twin's and the library call's ms (cuDNN
     ``F.conv2d`` in bf16, channels last, then the epilogue in bf16; for K3
     the einsum in bf16), the device ms from a CUDA graph and the bf16 bound
-    (2 bytes per bf16 activation and weight, 4 per fp32 operand; K1 and K2
-    at the bf16 tensor cores' 989 TFLOP/s, K3 at the FMA rate). A device
+    (2 bytes per bf16 activation and weight, 4 per fp32 operand; operations
+    at the bf16 tensor cores' 989 TFLOP/s for all three kernels; K3-bf16's
+    ToRGBs sum on the FMA units but are bound by their bytes). A device
     time under ``BOUND_FLOOR`` of its bound fails. Returns the totals over
     the shapes the bf16 trainers (phases 17a-17c) launch: K1 and K2 at batch
     8, K3 at its trainer shapes above."""
@@ -928,7 +934,8 @@ def phase_kernels_bf16() -> dict:
         out_bytes = got.element_size() * (got.numel() + (residual.numel() if has_res else 0))
         nbytes = 2 * x.numel() + out_bytes + 4 * sum(
             t.numel() for t in (style, w, demod, noise, nw, bias) if t is not None)
-        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * batch * p * cin * cout)
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * batch * p * cin * cout,
+                                                 TC_BF16_FLOP_PER_S)
         add("modconv1x1_bf16", rec, in_total)
 
     for shape in k3_shapes():  # the edit path's shapes, both outputs
@@ -939,6 +946,16 @@ def phase_kernels_bf16() -> dict:
             k3_shape(*shape, batch, torch.float32, True)
     for shape in mapper_conv_shapes(TRAIN_ATTENTION_LAYER)[1:]:  # 17c's mapper
         k3_shape(*shape, True, False, ATTENTION_BATCH, bf, True)
+    # the core's tile edges (after the trainer shapes, so that their inputs
+    # stay those of earlier runs): P = 16 (under its 64-pixel tile, TMA's
+    # zero rows) and P = 64 (one whole tile), a mapper conv and a ToRGB
+    for res in (4, 8):
+        for batch in (1, 8):
+            for out_dtype in (torch.float32, bf):
+                k3_shape(f"tile_edge_{res * res}", res, 512, 32, True, False, batch,
+                         out_dtype, False)
+                k3_shape(f"tile_edge_{res * res}", res, 512, 3, False, True, batch,
+                         out_dtype, False)
     return totals
 
 
@@ -4712,7 +4729,10 @@ def main(argv=None) -> None:
             "core": ("tensor cores (wgmma), bf16 products, fp32 sums: the persistent, "
                      "warp-specialised TMA + wgmma core csrc/conv3x3_bf16.cuh"
                      if name != "modconv1x1"
-                     else "fp32 FMA units on bf16 input"),
+                     else "the persistent, warp-specialised TMA streaming kernel of "
+                     "csrc/modconv1x1.cu: bf16 outputs on the tensor cores (wgmma, the fp32 "
+                     "style-weight fold in bf16 parts), the ToRGBs' fp32 outputs on the FMA "
+                     "units in the FMA kernel's order, fp32 sums"),
             "note": "the bf16 form (phase 3b): ms, device_ms, plain_ms, bound_ms, "
                     "library_ms: sums over "
                     + ("the 1024² trainer's 9 shapes at batch 8" if name == "modconv3x3"
@@ -4721,9 +4741,8 @@ def main(argv=None) -> None:
                        "the bf16 trainers' shapes: the 9 ToRGBs at batch 8 and 2 "
                        "with fp32 out, the attention trainer's 18 mapper convs at "
                        "batch 8 with bf16 out")
-                    + "; bound_ms at 2 bytes per bf16 value and "
-                    + ("the bf16 tensor cores' 989 TFLOP/s" if name != "modconv1x1"
-                       else "the fp32 FMA rate")
+                    + "; bound_ms at 2 bytes per bf16 value and the bf16 tensor cores' "
+                    "989 TFLOP/s"
                     + "; library_ms: cuDNN F.conv2d (K3: the einsum) in bf16 plus the "
                     "epilogue; launches: the bf16 trainer runs (phases 17a train_bf16, "
                     "17b train_levers, 17c attention_bf16 and styleclip_bf16), the "

@@ -7,7 +7,10 @@ gradient's 513 outputs, split and unsplit K ranges, several images per
 tile, a column taller than a TMA box may be (300x1), weights resident in
 shared memory or streamed, every optional
 epilogue input on and off; two calls of one shape bitwise equal (split-K
-shapes included); K3 with fp32 and with bf16 output; K1's bf16 weight
+shapes included); K3 with fp32 and with bf16 output (tiles at and under
+the core's 64 rows, tail tiles, Cin 576 and the batch-8 ToRGB at 1024²,
+two calls bitwise, its work plan against the Python mirror in
+``tests/torch_parity.py``); K1's bf16 weight
 preparation against its plain twin (bitwise) and a prepared call against
 one that prepares (bitwise); the backward of the bf16 calls against
 autograd through the twins.
@@ -26,6 +29,7 @@ backward's bf16 dz).
 
 import pytest
 import torch
+from torch_parity import k3_bf16_plan
 
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
@@ -179,6 +183,10 @@ def test_torch_cuda_bf16_core_repeats_bitwise(dev, b, h, w, cin, cout):
     (1, 4096, 512, 3, False, None, True, False, True),
     (2, 256, 512, 32, True, "shared", True, True, False),
     (8, 16384, 64, 3, False, None, True, False, True),
+    (8, 16, 512, 32, True, "batch", True, True, False),
+    (1, 16, 576, 1, True, "shared", True, True, False),
+    (3, 64, 128, 32, True, "batch", True, True, True),
+    (8, 1048576, 32, 3, False, None, True, False, True),
 ])
 def test_torch_cuda_modconv1x1_bf16(dev, out_dtype, b, p, cin, cout, demod, noise,
                                     bias, act, res):
@@ -194,6 +202,11 @@ def test_torch_cuda_modconv1x1_bf16(dev, out_dtype, b, p, cin, cout, demod, nois
     assert got.dtype == out_dtype
     assert (k3.launches, k3.launches_bf16) == (n3 + 1, nb + 1)
     assert _rel(got, k3.modconv1x1_plain(*args, out_dtype=out_dtype)) <= REL
+    assert torch.equal(k3.modconv1x1(*args, out_dtype=out_dtype), got)
+    size = torch.finfo(out_dtype).bits // 8
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert k3.plan_bf16(b, p, cin, cout, out_dtype, res, dev.index) == \
+        k3_bf16_plan(b, p, cin, cout, size, size if res else 0, sms)
 
 
 def _check_grads(fn, plain, tensors: dict, flags: dict, dy):

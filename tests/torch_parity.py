@@ -337,3 +337,76 @@ def arcface_state(seed: int = 0, input_size: int = 112) -> dict:
     from where2edit_tpu_torch.models.irse import Backbone  # noqa: PLC0415
 
     return _seeded_state(lambda: Backbone(input_size), seed, conv_gain=1.0)
+
+
+K3_BF16_MAX_SMEM = 232448  # bytes a block may use on the H100
+
+
+def k3_bf16_plan(b: int, p: int, cin: int, cout: int, out_size: int, res_size: int,
+                 sms: int) -> dict | None:
+    """A mirror of the bf16 K3 core's work plan (``csrc/modconv1x1.cu``,
+    ``k3_bf16::make_plan``; the card reports its own through
+    ``kernels/modconv1x1.py::plan_bf16``), or None where the core does not
+    take the shape. Units are one sample x one tile of ``tile`` pixels
+    (64 where P ≤ 64, where Cout > 8, where the FMA form (fp32 out, Cout ≤
+    8) has Cin > 128 or where 128-pixel units would be fewer than the SMs;
+    256 where Cin ≤ 32, Cout ≤ 8 and 256-pixel units still fill the SMs;
+    else 128), sample-major; K runs over ``slices`` of ``kc`` channels (32
+    where Cin rounded up to 8 is ≤ 32, else 64); the fold has ``nc`` = 8 or
+    32 output channels (fp32 in the FMA form, else its two bf16 parts); each
+    consumer's ring has ``stages`` stages (at most 8, or the FMA form's
+    slices, which are staged all at once) of one slice's TMA box and, in
+    the last slice's, the unit's residual tile; two fold slots where they
+    leave 4 stages, else one. ``unit_flags``: per unit, bit 0 its residual tile moves by one bulk
+    copy (both ends 16-byte aligned), else value by value; bit 1 its output
+    tile leaves in 16-byte stores (its first value 16-byte aligned), else
+    value by value."""
+    def cdiv(a, d):
+        return -(-a // d)
+
+    def up(v, m):
+        return cdiv(v, m) * m
+
+    if min(b, p, cin, cout, sms) < 1 or cout > 32:
+        return None
+    cx = up(cin, 8)
+    fma = out_size == 4 and cout <= 8  # the FMA form: its fold fp32, its slices all staged
+    tile = (64 if p <= 64 or cout > 8 or (fma and cx > 128) or b * cdiv(p, 128) < sms
+            else 256 if cx <= 32 and cout <= 8 and b * cdiv(p, 256) >= sms else 128)
+    tiles = cdiv(p, tile)
+    units = b * tiles
+    kc = 32 if cx <= 32 else 64
+    slices = cdiv(cx, kc)
+    nc = 8 if cout <= 8 else 32
+    x_bytes = tile * kc * 2
+    stage_bytes = up(x_bytes + up(tile * cout * res_size, 16), 1024)
+    fold_bytes = up(nc * slices * kc * 4 if fma  # fp32, or its two bf16 parts
+                    else slices * 2 * nc * kc * 2, 1024)
+    out_bytes = up(tile * cout * 4, 128)
+    need = max(2, slices) if fma else 2
+    cap = max(8, need)
+    for fold_slots in (2, 1):
+        ring_off = fold_slots * fold_bytes
+        fixed = 1024 + ring_off + 4 * out_bytes + 8 * (4 * cap + 4)
+        stages = min(cap, (K3_BF16_MAX_SMEM - fixed) // (2 * stage_bytes))
+        if stages >= (max(4, need) if fold_slots == 2 else need):
+            break
+    else:
+        return None
+    out_off = ring_off + 2 * stages * stage_bytes
+    bar_off = out_off + 4 * out_bytes
+
+    def bulk(first, n, size):
+        return size > 0 and (first * size) % 16 == 0 and (n * size) % 16 == 0
+
+    flags = []
+    for u in range(units):
+        s, p0 = divmod(u, tiles)
+        first, n = (s * p + p0 * tile) * cout, min(tile, p - p0 * tile) * cout
+        flags.append(int(bulk(first, n, res_size)) | int((first * out_size) % 16 == 0) << 1)
+    return {"tile": tile, "tiles": tiles, "units": units, "grid": min(units, sms), "kc": kc,
+            "slices": slices, "nc": nc, "res_size": res_size, "out_size": out_size,
+            "x_bytes": x_bytes, "stage_bytes": stage_bytes, "stages": stages,
+            "fold_bytes": fold_bytes, "fold_slots": fold_slots, "out_bytes": out_bytes,
+            "ring_off": ring_off, "out_off": out_off, "bar_off": bar_off,
+            "smem": 1024 + bar_off + 8 * (4 * stages + 2 * fold_slots), "unit_flags": flags}

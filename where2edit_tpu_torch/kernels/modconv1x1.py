@@ -2,12 +2,13 @@
 
 Replaces the TPU kernel ``tools/pallas_bench.py::modulated_conv1x1`` (body
 ``_kernel``). Source: ``csrc/modconv1x1.cu``. Bound on the H100: bytes
-(Cout <= 32 on the path, so each input value feeds at most 32 multiply-adds);
-a group of up to 32 lanes shares each pixel's Cin row, against a
-style·weight fold made once per block in shared memory, reduces across the
-group with warp shuffles and applies demod, noise, bias, the activation and
-the residual before the single store (see the source's header). Any Cin
-works: a Cin that is not a multiple of 4 is read one float at a time.
+(Cout <= 32 on the path, so each input value feeds at most 32 multiply-adds).
+The fp32 form: a group of up to 32 lanes shares each pixel's Cin row,
+against a style·weight fold made once per block in shared memory, reduces
+across the group with warp shuffles and applies demod, noise, bias, the
+activation and the residual before the single store (see the source's
+header). Any Cin works: a Cin that is not a multiple of 4 is read one float
+at a time.
 
 ``modconv1x1`` is a ``torch.autograd.Function`` whose forward dispatches on
 the device of ``x``: a CPU tensor takes the plain PyTorch version, a CUDA
@@ -18,15 +19,21 @@ layer's Cin (up to 512), beyond the kernel's Cout <= 32; the weight, style
 and demod gradients come from one per-sample product
 ``P[b] = x[b]ᵀ dz[b]`` as in K1.
 
-The bf16 form: a bf16 ``x`` launches ``w2e_modconv1x1_bf16``, which reads x
-as 16-byte octets of 8 channels, folds style·weight in fp32 and sums in
-fp32; its output is fp32 (``out_dtype=torch.float32``: ToRGB, whose RGB
-skip chain stays fp32) or bf16 (the default, ``x``'s dtype: a 1x1
-StyledConv, the mapper's convs), and ``residual`` comes in the output's
-dtype. ``modconv1x1_plain`` on a bf16 ``x`` is its twin (x upcast, fp32
-arithmetic, one rounding to the output's dtype); the TPU kernel's
-round(x·s) differs from it by less than one bf16 step. A bf16 call's
-gradients are taken in fp32 and handed back in each input's dtype.
+The bf16 form: a bf16 ``x`` launches ``w2e_modconv1x1_bf16``, a
+persistent, warp-specialised TMA + ``wgmma`` kernel (see the source's
+header): x is streamed by TMA in tiles of 64, 128 or 256 pixels of one
+sample; a bf16 output's sums run on the tensor cores (the fp32
+style·weight fold split into bf16 parts multiplied in one MMA per 16
+channels), a ToRGB's fp32 ones on the FMA units in the order of the FMA
+kernel it replaced, bit for bit; the epilogue is fp32; its output is fp32
+(``out_dtype=torch.float32``: ToRGB, whose RGB skip chain stays fp32) or
+bf16 (the default, ``x``'s dtype: a 1x1 StyledConv, the mapper's convs),
+and ``residual`` comes in the output's dtype. TMA reads whole 16-byte rows, so a Cin that is not a
+multiple of 8 reaches the kernel padded with zero channels. ``plan_bf16``
+reports a call's work plan. ``modconv1x1_plain`` on a bf16 ``x`` is its
+twin (x upcast, fp32 arithmetic, one rounding to the output's dtype); the
+TPU kernel's round(x·s) differs from it by less than one bf16 step. A bf16
+call's gradients are taken in fp32 and handed back in each input's dtype.
 ``launches`` counts kernel launches, and ``launches_bf16`` those of the
 bf16 form among them.
 """
@@ -36,6 +43,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from where2edit_tpu_torch.kernels.common import (
     check_cuda_tensor,
@@ -57,6 +65,10 @@ MAX_COUT = 32
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 4 \
     + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 _ARGTYPES_BF16 = _ARGTYPES[:-1] + [ctypes.c_int, ctypes.c_void_p]
+# the bf16 core's work plan, in the order w2e_modconv1x1_bf16_plan writes it
+PLAN_FIELDS = ("tile", "tiles", "units", "grid", "kc", "slices", "nc", "res_size",
+               "out_size", "x_bytes", "stage_bytes", "stages", "fold_bytes", "fold_slots",
+               "out_bytes", "ring_off", "out_off", "bar_off", "smem")
 
 
 def modconv1x1_plain(x, style, w, demod=None, noise=None, noise_weight=None,
@@ -77,6 +89,24 @@ def blocks(b, p, cin, cout, device_index=0) -> int:
     """Blocks the kernel launches for this shape on the card (0: not taken)."""
     return load("modconv1x1", "w2e_modconv1x1_blocks", [ctypes.c_int] * 5)(
         b, p, cin, cout, sm_count(device_index))
+
+
+def plan_bf16(b, p, cin, cout, out_dtype=torch.bfloat16, residual=False,
+              device_index=0) -> dict | None:
+    """The bf16 core's work plan for a call on the card (``PLAN_FIELDS``,
+    and ``unit_flags``: per unit, bit 0 its residual tile moves by one bulk
+    copy, bit 1 its output tile leaves in 16-byte stores), or None where the
+    core does not take the shape."""
+    fn = load("modconv1x1", "w2e_modconv1x1_bf16_plan",
+              [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    fields = (ctypes.c_int * len(PLAN_FIELDS))()
+    flags = (ctypes.c_ubyte * (b * -(-p // 64)))()  # units, at most
+    if not fn(b, p, cin, cout, int(out_dtype == torch.bfloat16), int(residual),
+              sm_count(device_index), fields, flags):
+        return None
+    plan = dict(zip(PLAN_FIELDS, fields))
+    plan["unit_flags"] = list(flags[:plan["units"]])
+    return plan
 
 
 def _launch(x, style, w, demod, noise, noise_weight, bias, act, residual,
@@ -109,6 +139,8 @@ def _launch(x, style, w, demod, noise, noise_weight, bias, act, residual,
         check_cuda_tensor("bias", bias, (cout,), dev)
     if residual is not None:
         check_cuda_tensor("residual", residual, (b, p, cout), dev, odt)
+    if bf and cin % 8:  # TMA reads whole 16-byte rows: zero channels to a multiple of 8
+        x = F.pad(x, (0, 8 - cin % 8))
     out = torch.empty((b, p, cout), device=dev, dtype=odt)
     args = (ptr(x), ptr(style), ptr(w), ptr(demod), ptr(noise), noise_bstride,
             ptr(noise_weight) if noise is not None else None, ptr(bias),
