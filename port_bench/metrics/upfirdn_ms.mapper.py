@@ -1,0 +1,7 @@
+"""Device ms per mapper sample in the FIR blurs, forward (ops.upfirdn2d) and backward (ops.upfirdn2d.backward)."""
+
+from port_bench.lib.program_spans import device_ms_per_unit
+
+
+def read(ctx):
+    return device_ms_per_unit(ctx, "ops.upfirdn2d")

@@ -4,10 +4,13 @@
 Cutouts: ``resample``, ``clamp_with_grad`` (value and gradient),
 ``masks_to_boxes`` and ``crop_resize_bilinear`` against the JAX functions
 on the same numpy inputs within 1e-5; ``MakeCutouts``' shapes and range.
-Profiling: ``StageTimer`` and ``summarize_trace`` on a CPU profile.
+Profiling: ``StageTimer``, ``sync_fetch`` and ``trace``'s Chrome trace, which
+holds the program's ``ops.upfirdn2d`` span around its convolution.
 Registry: the four behaviours of tests/test_registry.py, with ``gdown``
 mocked (nothing is downloaded)."""
 
+import gzip
+import json
 import sys
 import types
 
@@ -19,6 +22,7 @@ import torch
 
 from where2edit_tpu.utils import cutouts as jc
 from where2edit_tpu.utils.registry import GOOGLE_DRIVE_PATHS as JAX_PATHS
+from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
 from where2edit_tpu_torch.utils import cutouts as tc
 from where2edit_tpu_torch.utils import profiling
 from where2edit_tpu_torch.utils.registry import (
@@ -92,7 +96,7 @@ def test_torch_make_cutouts_shapes_and_range(hw, cut):
     assert torch.isfinite(xg.grad).all() and xg.grad.abs().sum() > 0
 
 
-def test_torch_stage_timer_and_summarize_trace(tmp_path):
+def test_torch_stage_timer_and_trace(tmp_path):
     timer = profiling.StageTimer()
     a = torch.randn(64, 64)
     with timer.stage("matmul"):
@@ -104,19 +108,17 @@ def test_torch_stage_timer_and_summarize_trace(tmp_path):
     assert "matmul" in report and "add" in report and "%" in report
     assert set(timer.ms()) == {"matmul", "add"}
     assert profiling.sync_fetch({"x": a}) == {"x": a}
+    x = torch.randn(1, 8, 8, 4)
     with profiling.trace(str(tmp_path)):
-        b = torch.randn(128, 128)
-        for _ in range(4):
-            b = torch.mm(b, b).clamp(-1, 1)
-    rows = profiling.summarize_trace(str(tmp_path), top=5)
-    assert rows and len(rows) <= 5
-    names = [r[0] for r in rows]
-    assert "aten::mm" in names
-    mm = rows[names.index("aten::mm")]
-    assert mm[2] == 4 and mm[1] > 0
-    assert [r[1] for r in rows] == sorted((r[1] for r in rows), reverse=True)
-    with pytest.raises(FileNotFoundError):
-        profiling.summarize_trace(str(tmp_path / "empty"))
+        upfirdn2d(x, make_kernel([1, 3, 3, 1]), up=2, pad=(2, 1))
+    (path,) = tmp_path.glob("*.trace.json.gz")
+    with gzip.open(path, "rt") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    (span,) = [e for e in events if e["name"] == "ops.upfirdn2d"]
+    convs = [e for e in events if e["name"] == "aten::convolution"]
+    assert convs and all(span["ts"] <= c["ts"] and c["ts"] + c["dur"] <= span["ts"] + span["dur"]
+                         for c in convs)
+    assert profiling.totals()["ops.upfirdn2d"]["count"] == 1
 
 
 def test_torch_registry_table_is_the_jax_table():

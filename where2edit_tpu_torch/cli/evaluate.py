@@ -29,7 +29,6 @@ one process, as the JAX CLI's.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import json
 import random
@@ -52,6 +51,7 @@ from where2edit_tpu_torch.ops.interpolate import interpolate_bilinear
 from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.corpus import load_corpus
 from where2edit_tpu_torch.train.datasets import CelebAMaskHQ
+from where2edit_tpu_torch.utils import profiling
 
 # an edit of the sweep: the prompt rows are the attention rows too
 EDIT_STRENGTH, EDIT_THRESHOLD = 0.1, 0.75
@@ -119,7 +119,7 @@ def make_edit_fn(session, truncation: float = 0.7, span=None, wplus_for=None):
     faces (``load_synthetic(seed)`` at the text batch, or
     ``load_latent(wplus_for(seed))``), then ``predict`` (the prompt rows
     as the attention rows, strength 0.1, threshold 0.75) and ``render``."""
-    span = span or (lambda stage: contextlib.nullcontext())
+    span = span or profiling.stage_spans("eval")
 
     def edit_fn(seed, text_feats):
         with span("faces"):
@@ -154,7 +154,7 @@ def iou_callables(session, psp=None, span=None) -> dict:
     mapper-ready taps) and ``mapper_apply`` (the S-space mapper on those
     styles: ``train=False``, ``finalize=False``, zero noise), and a
     ``tokenizer`` giving token ids on the session's device."""
-    span = span or (lambda stage: contextlib.nullcontext())
+    span = span or profiling.stage_spans("eval")
     dev = session.device
 
     def invert(img_arr):
@@ -183,15 +183,16 @@ def main(argv=None, span=None):
     """``span(stage)``, when given, is a context manager around each stage
     (edits: ``text``, ``faces``, ``edit``, ``clip_image``, ``arcface``,
     ``inception``; iou: ``invert``, ``capture``, ``mapper``):
-    ``chip_smoke.py`` fences, times and counts with it. Returns None on
-    ranks other than 0, and when ``--dp`` spawned its ranks."""
+    ``chip_smoke.py`` fences, times and counts with it; without it, the
+    tracer's ``eval.<stage>`` spans. Returns None on ranks other than 0,
+    and when ``--dp`` spawned its ranks."""
     args = build_argparser().parse_args(argv)
     return dp_entry(args, functools.partial(_main, span=span),
                     dp=args.dp if args.mode == "edits" else 0)
 
 
 def _main(args, span=None):
-    span = span or (lambda stage: contextlib.nullcontext())
+    span = span or profiling.stage_spans("eval")
     rng = random.Random(args.seed)
     session, closs = load_models(args)
     dev = session.device

@@ -37,7 +37,6 @@ features).
 from __future__ import annotations
 
 import argparse
-import contextlib
 import functools
 import os
 import time
@@ -52,6 +51,7 @@ from where2edit_tpu_torch.train.checkpoints import load_checkpoint, save_checkpo
 from where2edit_tpu_torch.train.datasets import ImageBank
 from where2edit_tpu_torch.train.gan_trainer import GANTrainConfig, GANTrainer
 from where2edit_tpu_torch.train.loader import PrefetchLoader
+from where2edit_tpu_torch.utils import profiling
 from where2edit_tpu_torch.utils.images import save_image_grid
 from where2edit_tpu_torch.utils.logging import MetricsWriter
 
@@ -146,7 +146,7 @@ def main(argv=None, span=None):
     around each training program (d, r1, g, path, ema) and, with
     ``--fid_every``, around the real pool's features (``fid_reals``) and
     each FID pass (``fid``): ``chip_smoke.py`` fences, times and counts with
-    it."""
+    it. Without it, the tracer's ``trainer.gan.<program>`` spans."""
     args = build_argparser().parse_args(argv)
     return dp_entry(args, functools.partial(_main, span=span))
 
@@ -193,7 +193,7 @@ def _main(args, span=None):
         (args.n_sample, 512), dtype=np.float32)).to(trainer.device)
 
     metrics_writer = MetricsWriter(os.path.join(args.results_dir, "logs"))
-    fid_span = span or (lambda program, trainer: contextlib.nullcontext())
+    fid_span = span or profiling.stage_spans("trainer.gan")
     if args.fid_every and dist.is_main():
         fid_extract = build_fid_extract(args, trainer.device)
         fb = args.fid_batch or args.batch

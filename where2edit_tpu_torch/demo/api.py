@@ -22,6 +22,7 @@ from where2edit_tpu_torch.editing.attention_mappers import tap_controls
 from where2edit_tpu_torch.editing.masks import demo_threshold
 from where2edit_tpu_torch.ops.gaussian_blur import gaussian_blur
 from where2edit_tpu_torch.ops.interpolate import interpolate_nearest
+from where2edit_tpu_torch.utils import profiling
 
 
 def subsample_for_mapper(feature_map, blend_size: int, indices=None):
@@ -46,18 +47,20 @@ def predict_edit(*, mapper, text_features, attention_text_features, latent,
     S-space: the edited styles and the cluster-pooled map (``strength_alpha``
     scales the residuals). W+: ``latent + delta`` (strength one) and the
     W+ mapper's own map. Returns (new_latents, attention_map (B, h, h, 1))."""
-    if work_in_stylespace:
-        mo = mapper(text_features, latent, mapper_feature_map, blend_size,
-                    attention_text=attention_text_features, train=False,
-                    strength_alpha=strength_alpha, pooled_map=True,
-                    finalize=False, deterministic_noise=deterministic_noise,
-                    rng=rng)
-        new_latents = mo.latents
-    else:
-        mo = mapper(text_features, latent, mapper_feature_map, blend_size,
-                    attention_text=attention_text_features, train=False)
-        new_latents = latent + mo.latents
-    amap = gaussian_blur(demo_threshold(mo.attention_map, attention_threshold), 5)
+    with profiling.span("predict.mapper"):
+        if work_in_stylespace:
+            mo = mapper(text_features, latent, mapper_feature_map, blend_size,
+                        attention_text=attention_text_features, train=False,
+                        strength_alpha=strength_alpha, pooled_map=True,
+                        finalize=False, deterministic_noise=deterministic_noise,
+                        rng=rng)
+            new_latents = mo.latents
+        else:
+            mo = mapper(text_features, latent, mapper_feature_map, blend_size,
+                        attention_text=attention_text_features, train=False)
+            new_latents = latent + mo.latents
+    with profiling.span("predict.map"):
+        amap = gaussian_blur(demo_threshold(mo.attention_map, attention_threshold), 5)
     return new_latents, amap
 
 
@@ -109,7 +112,10 @@ class EditSession:
 
     ``edit`` = ``encode`` (CLIP text) → ``predict`` (mapper + map) →
     ``render`` (blended synthesis); the three stages are public so a caller
-    can time them apart.
+    can time them apart. ``sample_wplus``, ``load_latent``, ``encode``,
+    ``predict`` and ``render`` are the tracer's spans ``session.sample``,
+    ``session.capture``, ``session.encode``, ``session.predict`` and
+    ``session.render`` (``utils/profiling.py``).
     """
 
     def __init__(self, *, generator, mapper, clip_encode_text,
@@ -125,6 +131,7 @@ class EditSession:
         self.image = None
         self._mean_latent = None
 
+    @profiling.spanned("session.sample")
     @torch.no_grad()
     def sample_wplus(self, seed: int, truncation: float = 0.7,
                      mean_latent: Optional[torch.Tensor] = None,
@@ -152,6 +159,7 @@ class EditSession:
         return self.load_latent(self.sample_wplus(seed, truncation,
                                                   mean_latent, batch))
 
+    @profiling.spanned("session.capture")
     @torch.no_grad()
     def load_latent(self, wplus: torch.Tensor) -> torch.Tensor:
         """Capture a W+ (B, n_latent, 512): its S-space styles (or the W+
@@ -174,6 +182,7 @@ class EditSession:
     def _tokens(self, tokens) -> torch.Tensor:
         return torch.as_tensor(np.asarray(tokens), device=self.device).long()
 
+    @profiling.spanned("session.encode")
     @torch.no_grad()
     def encode(self, prompt_tokens, attention_tokens=None):
         """CLIP text features of the prompt and attention rows, encoded as
@@ -200,6 +209,7 @@ class EditSession:
                      for f in feats]
         return lat, feats
 
+    @profiling.spanned("session.predict")
     @torch.no_grad()
     def predict(self, text, att, strength_alpha: float = 0.1,
                 attention_threshold: float = 0.75):
@@ -213,6 +223,7 @@ class EditSession:
             attention_threshold=attention_threshold,
             work_in_stylespace=self.work_in_stylespace)
 
+    @profiling.spanned("session.render")
     @torch.no_grad()
     def render(self, new_latents, amap):
         _, feats = self._face(amap.shape[0])

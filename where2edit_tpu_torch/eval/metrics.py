@@ -14,13 +14,13 @@ one-process order, which alone scores them.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from where2edit_tpu_torch.parallel import dist
+from where2edit_tpu_torch.utils import profiling
 
 
 def _sqrtm_psd(mat: np.ndarray) -> np.ndarray:
@@ -71,9 +71,10 @@ class EditEvaluator:
     ``edit_fn(seed, text_features) -> (orig, gen)`` edits the faces of one
     iteration (NHWC in [-1, 1]); ``encode_image`` and ``encode_text`` are one
     CLIP's; ``id_extract`` (optional) and ``fid_extract`` (CLIP image
-    features by default) map images to feature rows. ``span(stage)``, when
-    given, is a context manager around each stage (``text``, ``clip_image``,
-    ``arcface``, ``inception`` — the FID extractor); after ``run`` the pools
+    features by default) map images to feature rows. ``span(stage)`` is a
+    context manager around each stage (``text``, ``clip_image``,
+    ``arcface``, ``inception`` — the FID extractor), by default the
+    tracer's ``eval.<stage>``; after ``run`` the pools
     are kept in ``feats_gen`` and ``feats_orig``. In a data-parallel group
     ``edit_fn`` edits this rank's rows of the prompt batch whose features it
     is handed, and ``run`` returns the result on rank 0 alone (None on the
@@ -87,7 +88,7 @@ class EditEvaluator:
         self.encode_text = encode_text
         self.id_extract = id_extract
         self.fid_extract = fid_extract or encode_image
-        self.span = span or (lambda stage: contextlib.nullcontext())
+        self.span = span or profiling.stage_spans("eval")
         self.feats_gen = self.feats_orig = None
 
     @torch.no_grad()

@@ -50,6 +50,7 @@ from where2edit_tpu_torch.kernels.common import plain_epilogue, upcast
 from where2edit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
+from where2edit_tpu_torch.utils import profiling
 
 
 def pixel_norm(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -305,15 +306,15 @@ class ModulatedConv2d(nn.Module):
             noise = upcast(noise)  # the epilogue's operands stay fp32
         epilogue = dict(noise=noise, noise_weight=noise_weight, act=act,
                         out_dtype=out_dtype)
+        conv = self._upconv if self.upsample else self._conv
         if self.tp is None:
-            return self._conv(x, s, None, bias=bias, residual=residual,
-                              **epilogue), s
+            return conv(x, s, None, bias=bias, residual=residual, **epilogue), s
         if residual is not None:
             raise ValueError("a tensor-parallel conv takes no residual")
         c = self.out_channel // self.tp.n
         xe, se = self.tp.enter(x), self.tp.enter(s)
-        parts = [self._conv(xe, se, j, **epilogue, residual=None,
-                            bias=None if bias is None else bias[j * c:(j + 1) * c])
+        parts = [conv(xe, se, j, **epilogue, residual=None,
+                      bias=None if bias is None else bias[j * c:(j + 1) * c])
                  for j in self.tp.local]
         return self.tp.gather(parts, x.dim() - 1), s
 
@@ -357,6 +358,10 @@ class ModulatedConv2d(nn.Module):
                             wk, demod, nz, noise_weight, bias, act, res,
                             out_dtype=out_dtype)
         return out.reshape(bsz, h, wd, -1)
+
+    # the upsampling layer's conv (transposed conv, demod, blur, epilogue),
+    # and its backward, as the spans layers.upconv(.backward)
+    _upconv = profiling.spanned_layer("layers.upconv")(_conv)
 
 
 class NoiseInjection(nn.Module):

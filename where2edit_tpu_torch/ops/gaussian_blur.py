@@ -8,6 +8,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from where2edit_tpu_torch.utils import profiling
+
 
 def _gaussian_kernel1d(ksize: int, sigma: float | None, like: torch.Tensor) -> torch.Tensor:
     """Normalised 1-D taps, built on ``like``'s device (no host copy)."""
@@ -18,6 +20,7 @@ def _gaussian_kernel1d(ksize: int, sigma: float | None, like: torch.Tensor) -> t
     return (k / k.sum()).to(like.dtype)
 
 
+@profiling.spanned("ops.gaussian_blur")
 def gaussian_blur(x: torch.Tensor, ksize: int = 5,
                   sigma: float | None = None) -> torch.Tensor:
     c = x.shape[-1]

@@ -16,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from where2edit_tpu_torch.ops.conv import conv2d
+from where2edit_tpu_torch.utils import profiling
 
 
 def make_kernel(k) -> np.ndarray:
@@ -26,6 +27,7 @@ def make_kernel(k) -> np.ndarray:
     return (k / k.sum()).astype(np.float32)
 
 
+@profiling.spanned_layer("ops.upfirdn2d")
 def upfirdn2d(x: torch.Tensor, kernel, up: int = 1, down: int = 1,
               pad=(0, 0)) -> torch.Tensor:
     """(N, H, W, C) -> (N, H', W', C), H' = (H·up + pad0 + pad1 - kh)//down + 1.

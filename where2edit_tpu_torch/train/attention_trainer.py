@@ -45,7 +45,6 @@ single-process step on the global batch.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 from typing import Callable, NamedTuple, Optional
@@ -59,6 +58,7 @@ from where2edit_tpu_torch.editing.attention_mappers import tap_controls
 from where2edit_tpu_torch.losses.infonce import infonce_consistency
 from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.lr import styleclip_lr_schedule
+from where2edit_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -155,10 +155,6 @@ class MapperAdam:
         torch._foreach_copy_(self.nu, [t.to(m.device) for t, m in zip(state["nu"], self.nu)])
 
 
-def _nullspan(stage, trainer):
-    return contextlib.nullcontext()
-
-
 class AttentionTrainer:
     """Trains ``mapper`` (an S-space mapper, or with
     ``cfg.work_in_stylespace`` False a W+ one) against a frozen
@@ -169,9 +165,9 @@ class AttentionTrainer:
     pre-inverted W+ codes instead of truncated z samples. ``text_bank``
     (K, 512): condition on random rows of CLIP text encodings instead of
     image features (skips the conditioning synthesis and CLIP pass).
-    ``span(stage, trainer)``, when given, is a context manager around each
-    stage of a step: synthesis, cond_clip, mapper, edit, losses, backward,
-    adam.
+    ``span(stage, trainer)`` is a context manager around each stage of a
+    step: synthesis, cond_clip, mapper, edit, losses, backward, adam; by
+    default the tracer's ``trainer.attention.<stage>``.
     """
 
     def __init__(self, cfg: AttentionTrainConfig, *, generator, mapper,
@@ -189,7 +185,7 @@ class AttentionTrainer:
         self.mean_latent = mean_latent
         self.latent_bank = latent_bank
         self.text_bank = text_bank
-        self.span = span or _nullspan
+        self.span = span or profiling.stage_spans("trainer.attention")
         named = trainable_parameters(mapper)
         trained = {n for n, _ in named}
         for n, p in mapper.named_parameters():
@@ -336,6 +332,7 @@ class AttentionTrainer:
         return (aux, img_gen.detach(),
                 mo.attention_map.detach())
 
+    @profiling.spanned("trainer.attention.step")
     def step(self, step_idx: int, attention_bank: torch.Tensor):
         return self.step_with(self.draw(attention_bank.shape[0]), step_idx,
                               attention_bank)

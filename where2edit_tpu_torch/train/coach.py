@@ -42,14 +42,14 @@ its image grid, the metrics and the checkpoints are rank 0's; the
 validation losses reach the other ranks by broadcast, so every rank takes
 the same best-model decision.
 
-``span(stage, coach)``, when given, is a context manager around each stage
-of a training step (decode, mapper, edit, id, clip, backward, optim), around
-the latent sampling (sample) and around each validation (validate).
+``span(stage, coach)`` is a context manager around each stage of a
+training step (decode, mapper, edit, id, clip, backward, optim), around the
+latent sampling (sample) and around each validation (validate); by default
+the tracer's ``coach.<stage>`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -61,6 +61,7 @@ from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.train.attention_trainer import MapperAdam
 from where2edit_tpu_torch.train.checkpoints import save_coach_checkpoint
 from where2edit_tpu_torch.train.ranger import Ranger
+from where2edit_tpu_torch.utils import profiling
 from where2edit_tpu_torch.utils.images import save_image_grid
 from where2edit_tpu_torch.utils.logging import MetricsWriter
 
@@ -92,10 +93,6 @@ class CoachConfig:
     seed: int = 0
 
 
-def _nullspan(stage, coach):
-    return contextlib.nullcontext()
-
-
 class Coach:
     """Trains ``mapper`` against a frozen ``generator``, ``clip_loss``
     (``CLIPLoss``) and ``id_loss`` (``IDLoss``; either may be None), on the
@@ -124,7 +121,7 @@ class Coach:
         self.latent_avg = latent_avg
         self.text_tokens = text_tokens
         self.opts = dict(opts) if opts is not None else dataclasses.asdict(config)
-        self.span = span or _nullspan
+        self.span = span or profiling.stage_spans("coach")
         self.global_step = 0
         self.best_val_loss = None
         self.draw_rng = torch.Generator(self.device).manual_seed(config.seed)
@@ -212,7 +209,7 @@ class Coach:
     def _losses(self, w, x, w_hat, x_hat, span=None):
         """(total, {name: scalar tensor}) as the JAX ``_losses``."""
         cfg = self.cfg
-        span = span or (lambda stage: contextlib.nullcontext())
+        span = span or profiling.stage_spans("coach")
         loss = torch.zeros((), device=self.device)
         aux = {}
         if cfg.id_lambda > 0 and self.id_loss is not None:

@@ -45,7 +45,6 @@ JAX trainer ignores them with a mesh.
 
 from __future__ import annotations
 
-import contextlib
 import copy
 import dataclasses
 import math
@@ -58,6 +57,7 @@ from torch.utils.checkpoint import checkpoint
 from where2edit_tpu_torch import resolve_device
 from where2edit_tpu_torch.models.stylegan2 import Discriminator, Generator
 from where2edit_tpu_torch.parallel import dist
+from where2edit_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -292,14 +292,16 @@ class GANTrainer:
         return max(1, self.cfg.batch_size // max(self.cfg.path_batch_shrink, 1))
 
     # ------------------------------------------------------------- iteration
+    @profiling.spanned("trainer.gan.step")
     def step(self, real: torch.Tensor, span=None) -> dict:
         """One iteration: d, lazy r1, g, lazy path, ema. Returns the scalar
         metrics of what ran as device tensors (read them only when logging,
         so the host keeps queueing work), also kept as ``self.metrics`` while
-        the iteration fills them in. ``span(program, trainer)``, when given,
-        is a context manager around each program."""
+        the iteration fills them in. ``span(program, trainer)`` is a context
+        manager around each program; by default the tracer's
+        ``trainer.gan.<program>``."""
         cfg = self.cfg
-        span = span or (lambda program, trainer: contextlib.nullcontext())
+        span = span or profiling.stage_spans("trainer.gan")
         m = self.metrics = {}
         with span("d", self):
             m["d_loss"] = self.d_step_with(real, self.draw(cfg.batch_size))
