@@ -46,6 +46,18 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    FMA units but are bound by their bytes),
    the twin's ms and the library's bf16 ms; a device time under 0.95 of
    its bound fails.
+3c. kernels_k5 — K5 (``upfirdn2d``) at every call site of the 1024²
+   generator and discriminator at batch 8 (the up-conv's blur at 8²-1024²,
+   the ToRGB skip at 3 channels, the discriminator's two blurs), in fp32
+   and, bar the skip, in bf16: against its plain version (fp32
+   ``KERNEL_REL_TOL``; bf16 the plain version on the upcast input, rounded
+   once, ``BF16_KERNEL_REL_TOL``), two calls bitwise, one launch a call;
+   its plan (form, rows a thread, grid); ms, device ms (CUDA graph), the
+   plain version's ms and cuDNN's depthwise conv alone on the stuffed,
+   padded input as ``library_ms`` (what the port ran before; never called
+   by the port); the bound (bytes: x read once, the output written once;
+   or the taps that land on real samples at 67 TFLOP/s) and
+   ``bound_share``; a device time under 0.95 of its bound fails.
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
    the forward as the trainer runs it (K1 with per-sample noise, bias and
    the activation; K2 with bias and the activation; K3 as ToRGB with bias
@@ -119,7 +131,8 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    after each G step; ms per program, images/s and peak memory.
 9. train_profile — one more iteration of that trainer, at a step that runs
    every program, under ``torch.profiler``: device busy, the idle share,
-   device time by kernel category and by kernel.
+   device time by kernel category and by kernel; a cuDNN depthwise conv or
+   depthwise input gradient there fails (every blur is K5).
 10. train_whole — one training iteration at 64² on the card and on the CPU
    from the same weights and draws, each program from the same state: the
    losses and every parameter's gradient (``TRAIN_*_TOL``).
@@ -272,7 +285,7 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    (which ops are bitwise, K1's split-K counts); TP with SP raises; one
    ``EditSession`` edit through a banded generator; the NCCL form with
    more than one card.
-21. the ``kernels`` summary line (K1, K2, K3 and their bf16 forms), then
+21. the ``kernels`` summary line (K1, K2, K3, K5 and their bf16 forms), then
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -344,6 +357,7 @@ from where2edit_tpu_torch.kernels import common
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upfirdn2d as k5
 from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
 from where2edit_tpu_torch.losses.id_loss import IDLoss
 from where2edit_tpu_torch.losses.perceptual import PerceptualLoss
@@ -357,6 +371,7 @@ from where2edit_tpu_torch.models.stylegan2 import Discriminator, Generator, chan
 from where2edit_tpu_torch.models.vgg import Vgg16
 from where2edit_tpu_torch.nn.layers import EqualLinear, ModulatedConv2d, StyledConv
 from where2edit_tpu_torch.ops.interpolate import adaptive_avg_pool
+from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d, upfirdn2d_plain
 from where2edit_tpu_torch.parallel import dist
 from where2edit_tpu_torch.parallel.sp import InProcess, SpatialGroup, banded
 from where2edit_tpu_torch.parallel.tp import shard_generator_params
@@ -551,7 +566,7 @@ def phase_build() -> None:
                             if "registers" in ln or "Compiling entry" in ln
                             or "spill" in ln]
     hgmma = {}
-    for name in common.KERNEL_SOURCES:  # K1, K2 and K3-bf16 run wgmma
+    for name in ("modconv3x3", "conv3x3", "modconv1x1"):  # K1, K2 and K3-bf16 run wgmma
         sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass",
                                str(common.library_path(name))],
                               capture_output=True, text=True, timeout=120,
@@ -1014,6 +1029,109 @@ def phase_backward_bf16() -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: K5 (upfirdn2d) at every call site of the 1024² models
+# ---------------------------------------------------------------------------
+
+def k5_shapes(skip: bool = True) -> list:
+    """(name, x shape, up, down, pad, FIR) of every upfirdn2d call of the
+    1024² generator and discriminator at batch 8: the up-conv's blur at each
+    output size and Cout, the ToRGB skip's Upsample (3 channels; ``skip``),
+    the discriminator's blur before each ResBlock's 3x3 and 1x1 stride-2
+    convs."""
+    ch, blur = channel_table(2), make_kernel([1, 3, 3, 1])
+    shapes = [(f"g_blur_{r}", (8, r + 1, r + 1, ch[r]), 1, 1, (1, 1), blur * 4)
+              for r in (8, 16, 32, 64, 128, 256, 512, 1024)]
+    if skip:
+        shapes += [(f"skip_{2 * r}", (8, r, r, 3), 2, 1, (2, 1), blur * 4)
+                   for r in (4, 8, 16, 32, 64, 128, 256, 512)]
+    for r in (1024, 512, 256, 128, 64, 32, 16, 8):
+        shapes += [(f"d_blur_conv_{r}", (8, r, r, ch[r]), 1, 1, (2, 2), blur),
+                   (f"d_blur_skip_{r}", (8, r, r, ch[r]), 1, 1, (1, 1), blur)]
+    return shapes
+
+
+def phase_kernels_k5() -> dict:
+    """3c: K5 against its plain version (the stuffed, padded input through
+    cuDNN's depthwise conv; in bf16 the plain version on the upcast input,
+    rounded once) at ``k5_shapes`` in fp32 and, bar the fp32 skip, in bf16:
+    max |Δ| / max |plain| (``KERNEL_REL_TOL``, ``BF16_KERNEL_REL_TOL``), two
+    calls bitwise, one launch a call, the kernel's plan (form, rows a
+    thread, grid); ms, device ms (CUDA graph), the plain version's ms and,
+    as ``library_ms``, cuDNN's depthwise conv alone on the prepared input
+    (what the port ran before K5; timed only, never called by the port);
+    the bound, bytes (x read once, the output written once) or operations
+    (the taps that land on real samples, at the fp32 FMA rate), and the
+    device time's share of it (``bound_share``). A device time under
+    ``BOUND_FLOOR`` of its bound fails. Returns the totals per form over
+    every shape."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(12)
+    summed = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+    totals = {k: {**dict.fromkeys(summed, 0.0), "bytes_s": 0.0, "ops_s": 0.0,
+                  "max_abs_err": 0.0, "max_rel_err": 0.0}
+              for k in ("upfirdn2d", "upfirdn2d_bf16")}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf = dtype == torch.bfloat16
+        name = "upfirdn2d_bf16" if bf else "upfirdn2d"
+        for site, shape, up, down, pad, fir in k5_shapes(skip=not bf):
+            x = torch.randn(*shape, generator=g, device=dev).to(dtype)
+            pads = (*pad, *pad)
+
+            def kernel():
+                return upfirdn2d(x, fir, up=up, down=down, pad=pad)
+
+            def plain():
+                return upfirdn2d_plain(x.float() if bf else x, fir, up, down, pads).to(dtype)
+
+            n5 = k5.launches
+            got, again = kernel(), kernel()
+            torch.cuda.synchronize()
+            check(k5.launches == n5 + 2, f"{name} {site}: launches {k5.launches - n5}")
+            check(torch.equal(got, again), f"{name} {site}: two calls differ")
+            abs_err, rel = rel_err(got.float(), plain().float())
+            check(rel <= (BF16_KERNEL_REL_TOL if bf else KERNEL_REL_TOL),
+                  f"{name} {site}: rel {rel}")
+            # library yardstick: cuDNN's depthwise conv on the stuffed, padded
+            # input (channels last), the call the port made before K5
+            xs = x.permute(0, 3, 1, 2)
+            if up > 1:
+                stuffed = xs.new_zeros((shape[0], shape[3], shape[1] * up, shape[2] * up))
+                stuffed[:, :, ::up, ::up] = xs
+                xs = stuffed
+            xs = F.pad(xs, [pad[0], pad[1], pad[0], pad[1]]).contiguous(
+                memory_format=torch.channels_last)
+            w = torch.flip(torch.as_tensor(fir, dtype=dtype, device=dev), (0, 1))
+            w = w[None, None].expand(shape[3], 1, *fir.shape).contiguous(
+                memory_format=torch.channels_last)
+
+            def library():
+                return F.conv2d(xs, w, stride=down, groups=shape[3])
+
+            rec = {"shape": f"{site} {'x'.join(map(str, shape))}", "up": up, "down": down,
+                   "pad": pad, "max_abs_err": abs_err, "max_rel_err": rel,
+                   "plan": k5.plan(x, got.shape[1], got.shape[2], up, down, *fir.shape),
+                   "ms": time_ms(kernel, 60.0), "device_ms": graph_ms(kernel, 10),
+                   "plain_ms": time_ms(plain, 60.0), "library_ms": time_ms(library, 60.0),
+                   "library_device_ms": graph_ms(library, 10)}
+            taps = -(-fir.shape[0] // up) * -(-fir.shape[1] // up)
+            rec["bound_ms"], rec["bound_by"] = bound(
+                x.element_size() * (x.numel() + got.numel()), 2 * taps * got.numel())
+            rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+            emit({"phase": "kernels_bf16" if bf else "kernels", "kernel": name, **rec})
+            check(rec["device_ms"] >= BOUND_FLOOR * rec["bound_ms"],
+                  f"{name} {site}: device_ms {rec['device_ms']} under {BOUND_FLOOR} of "
+                  f"its bound {rec['bound_ms']}")
+            tot = totals[name]
+            for key in summed:
+                tot[key] += rec[key]
+            tot["bytes_s" if rec["bound_by"] == "bytes" else "ops_s"] += rec["bound_ms"]
+            tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+            tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+            del x, got, again, xs, w
+    return totals
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the kernels' backward against autograd through the plain versions
 # ---------------------------------------------------------------------------
 
@@ -1143,6 +1261,31 @@ def phase_backward() -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# launch counters: each main path's run reads them, set to 0 just before it
+# ---------------------------------------------------------------------------
+
+KERNEL_NAMES = ("modconv3x3", "conv3x3", "modconv1x1")
+COUNTERS = {"modconv3x3": k1, "conv3x3": k2, "modconv1x1": k3, "upfirdn2d": k5}
+
+
+def zero_counters() -> None:
+    for k in COUNTERS.values():
+        k.launches = k.launches_bf16 = 0
+
+
+def launch_forms() -> dict:
+    """{kernel: {"bf16": launches, "fp32": launches}} since the counters
+    were set to 0."""
+    return {name: {"bf16": k.launches_bf16, "fp32": k.launches - k.launches_bf16}
+            for name, k in COUNTERS.items()}
+
+
+def launch_totals(forms: dict) -> dict:
+    """{kernel: fp32 + bf16 launches} of a ``launch_forms()`` record."""
+    return {k: v["fp32"] + v["bf16"] for k, v in forms.items()}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the 1024² edit path through the kernels
 # ---------------------------------------------------------------------------
 
@@ -1241,8 +1384,7 @@ def phase_slice() -> tuple:
     per_pass = 1 + len(session.generator.to_rgbs)
     per_capture = (per_pass, per_pass)
     per_edit = (per_pass, per_pass + len(session.mapper.layer_num) + 2)
-    k1.launches = 0
-    k3.launches = 0
+    zero_counters()
     # --- the main path: one capture, three edits, one 2-prompt sweep ---
     before = counts()
     img = session.load_synthetic(7)
@@ -1266,7 +1408,7 @@ def phase_slice() -> tuple:
     check_edit(img, amap, 2)
     expect(before, *per_edit, "2-prompt sweep")
     expect_no_prepare(prepares, "2-prompt sweep")
-    launches = {"modconv3x3": k1.launches, "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     emit({"phase": "slice", "step": "main_path", "edits": len(PROMPTS),
           "sweeps": 1, "stored_taps": n_taps, "launches": launches,
           "per_capture": per_capture, "per_edit": per_edit,
@@ -1296,7 +1438,9 @@ CATEGORIES = (
     ("K1 modconv3x3", ("modconv3x3",)),
     ("K2 conv3x3", ("conv3x3_k2",)),  # K2's tag, in both cores' kernel names
     ("K3 modconv1x1", ("modconv1x1",)),
+    ("K5 upfirdn2d", ("upfirdn2d",)),
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
+    ("cuDNN depthwise input gradients (blur gradients)", ("dgrad2d_c1_k1",)),
     ("cuDNN weight gradients", ("wgrad",)),
     ("cuDNN transposed conv (up-conv) and input gradients", ("dgrad",)),
     ("BatchNorm (running statistics)", ("batch_norm", "bn_fw")),
@@ -1484,7 +1628,7 @@ def phase_wplus_edit(session, s_per_edit: tuple, whole: tuple, card: str) -> tup
         check(got == (want[0], 0, want[1]),
               f"{what}: launches (K1, K2, K3) +{got}, expected +({want[0]}, 0, {want[1]})")
 
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     # --- the main path ---
     before = counts()
     img = wsess.load_synthetic(7)
@@ -1510,8 +1654,7 @@ def phase_wplus_edit(session, s_per_edit: tuple, whole: tuple, card: str) -> tup
     sync()
     check_edit(img, amap, 2)
     expect(before, per_edit, "W+ 2-prompt sweep")
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     emit({"phase": "wplus_edit", "step": "main_path", "card": card,
           "mapper": "FullSpaceMapperFEATClusterLin", "edits": len(PROMPTS),
           "sweeps": 1, "launches": launches, "per_capture": per_capture,
@@ -1611,7 +1754,7 @@ def phase_server(session, card: str, p50s: dict) -> dict:
         per_pass = 1 + len(session.generator.to_rgbs)
         per_request = (2 * per_pass, 0,
                        2 * per_pass + len(session.mapper.layer_num) + 2)
-        k1.launches = k2.launches = k3.launches = 0
+        zero_counters()
         # --- the main path: 8 edit requests, each a seeded face and a prompt ---
         ms, server_ms = [], []
         for i in range(SERVER_REQUESTS):
@@ -1637,8 +1780,7 @@ def phase_server(session, card: str, p50s: dict) -> dict:
             got = tuple(a - b for a, b in zip(counts(), before))
             check(got == per_request, f"request {i}: launches {got}, "
                                       f"expected {per_request}")
-        launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                    "modconv1x1": k3.launches}
+        launches = launch_totals(launch_forms())
     finally:
         httpd.shutdown()
         httpd.server_close()
@@ -1743,7 +1885,7 @@ def phase_invert(session, card: str, work: str) -> tuple:
     per_pass = 1 + len(gen.to_rgbs)
     mapper_convs = len(session.mapper.layer_num) + 2
     toks, att = tokenize([PROMPTS[0][0]]), tokenize([PROMPTS[0][1]])
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     # --- the main path: invert, capture, edit; PSp.__call__; the CLI ---
     before = counts3()
     w8 = psp.encode(x8)
@@ -1788,8 +1930,7 @@ def phase_invert(session, card: str, work: str) -> tuple:
             expect(before, per_pass * (1 + n_texts),
                    per_pass * (1 + n_texts) + mapper_convs * n_texts, f"cli --{name}")
             cli_rows[name] = len(rows)
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     emit({"phase": "invert", "step": "main_path", "card": card,
           "encoder": "Encoder4Editing, IR-SE50", "stylegan_size": SIZE,
           "n_latent": gen.n_latent, "encoder_params": n_params,
@@ -1983,13 +2124,12 @@ def phase_train(card: str) -> tuple:
     probe = TrainProbe()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     # --- the main path: 5 iterations through the CLI ---
     with tempfile.TemporaryDirectory() as results:
         trainer = train_stylegan.main([*TRAIN_ARGS, "--results_dir", results],
                                       span=probe)
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     peak = torch.cuda.max_memory_allocated()
     for m in ("g", "d"):
         still = [n for (n, p), p0 in zip(getattr(trainer, m).named_parameters(),
@@ -2042,6 +2182,11 @@ def phase_train_profile(trainer, card: str) -> None:
     emit({"phase": "train_profile", "card": card, "size": SIZE,
           "batch": trainer.cfg.batch_size,
           "losses": {k: float(v) for k, v in trainer.metrics.items()}, **rec})
+    # every FIR blur and its gradients run on K5: no cuDNN depthwise conv is left
+    cats = {c["name"] for c in rec["categories"]}
+    check(not cats & {"cuDNN depthwise conv (blurs)",
+                      "cuDNN depthwise input gradients (blur gradients)"},
+          f"train_profile: cuDNN depthwise kernels in a GAN iteration: {sorted(cats)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2184,15 +2329,14 @@ def phase_cluster(card: str, keep_dir: str) -> tuple:
     card's Lloyd against the CPU's. Returns ({kernel: launches}, the pickle's
     path, copied into ``keep_dir``)."""
     records = []
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     # --- the main path: the CLI, with --step 4 (its one cut) ---
     with tempfile.TemporaryDirectory() as results:
         path = run_clustering.main([*cluster_args(), "--results_dir", results],
                                    span=fenced_span(records))
         centers = load_cluster_centers(path)
         kept = shutil.copy(path, keep_dir)
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     per_pass = (1 + int(math.log2(SIZE)) - 2, 0, 1 + int(math.log2(SIZE)) - 2)
     steps = CLUSTER_STEPS
     expect = {"collect": tuple(steps * n for n in per_pass), "fit": (0, 0, 0),
@@ -2337,7 +2481,7 @@ def phase_attention(card: str, cluster_path: str, keep_dir: str) -> tuple:
     if DEV == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     with tempfile.TemporaryDirectory() as results:
         args = ["--stylegan_size", str(SIZE), "--work_in_stylespace",
                 "--use_cluster", "--cluster_path",
@@ -2345,8 +2489,7 @@ def phase_attention(card: str, cluster_path: str, keep_dir: str) -> tuple:
                 str(ATTENTION_STEPS), "--save_intermediate_image_every", "0",
                 "--device", DEV, "--results_dir", results]
         out_dir = run_attention.main(args, span=probe)
-        launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                    "modconv1x1": k3.launches}
+        launches = launch_totals(launch_forms())
         peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
         trainer = probe.trainer
         (log_dir,) = glob.glob(os.path.join(results, "logs", "*"))
@@ -2556,7 +2699,7 @@ def phase_mapper_load(card: str, final_path: str) -> dict:
     # bits. Deterministic algorithms make the bitwise comparison possible.
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     with tempfile.TemporaryDirectory() as tmp:
         source, paths = reference_mapper_files(tmp)
         final = torch.load(final_path, map_location="cpu", weights_only=True)["mapper"]
@@ -2629,8 +2772,7 @@ def phase_mapper_load(card: str, final_path: str) -> dict:
             if DEV == "cuda":
                 torch.cuda.empty_cache()
     torch.backends.cudnn.deterministic = deterministic
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     emit({"phase": "mapper_load", "card": card, "size": SIZE, "files": records,
           "launches": launches, "cudnn_deterministic": True})
     return launches
@@ -2650,14 +2792,13 @@ def run_attention_probed(args: list, steps: int) -> tuple:
     K3 in the mapper stage (these mappers' convs are plain), and finite
     losses. Returns (probe, losses, {kernel: launches})."""
     probe = AttentionProbe()
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     with tempfile.TemporaryDirectory() as results:
         run_attention.main([*args, "--save_intermediate_image_every", "0",
                             "--device", DEV, "--results_dir", results], span=probe)
         (log_dir,) = glob.glob(os.path.join(results, "logs", "*"))
         losses = [r["value"] for r in read_scalars(log_dir) if r["tag"] == "loss/loss"]
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     check(len(losses) == steps and all(map(math.isfinite, losses)), f"losses {losses}")
     expect = attention_launches(probe.trainer.generator.log_size - 2, 0)
     for step, stage, _, got, prep in probe.records:
@@ -2846,7 +2987,7 @@ def phase_evaluate_edits(card: str, work: str) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     probe = StageProbe("text", EVAL_ITERS, EVAL_ITERS - EVAL_PROFILED, "inception")
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     result = evaluate.main([
         "edits", "--stylegan_size", str(SIZE), "--attention_layer", str(ATTENTION_LAYER),
@@ -2855,8 +2996,7 @@ def phase_evaluate_edits(card: str, work: str) -> dict:
         "--ir_se50_weights", files["arcface"], "--device", DEV,
         "--description_dir", os.path.join(work, "no-captions")], span=probe)
     wall_s = time.perf_counter() - t0
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     prof = probe.profile(EVAL_STAGES)
     n = EVAL_ITERS * EVAL_BATCH
     check(set(result) == {"clip_improvement", "fid_features", "n", "id_cosine"},
@@ -2926,15 +3066,14 @@ def phase_evaluate_iou(card: str, work: str, faces: torch.Tensor) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     probe = StageProbe("invert", IOU_PAIRS)
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     macro, printed = captured(lambda: evaluate.main([
         "iou", "--stylegan_size", str(SIZE), "--attention_layer", str(ATTENTION_LAYER),
         "--cluster_layer", str(ATTENTION_LAYER), "--e4e_ckpt", os.path.join(work, "e4e.pt"),
         "--img_path", img_dir, "--label_path", lbl_dir, "--device", DEV], span=probe))
     wall_s = time.perf_counter() - t0
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     out = json.loads(printed.strip().splitlines()[-1])
     per_class = out["per_class_iou"]
     check(len(per_class) == 8 and all(0.0 <= v <= 1.0 for v in per_class),
@@ -3047,7 +3186,7 @@ def phase_train_fid(card: str, work: str) -> dict:
     probe = TrainProbe()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     args = [*TRAIN_ARGS[:TRAIN_ARGS.index("--iter") + 1], "2",
             *TRAIN_ARGS[TRAIN_ARGS.index("--iter") + 2:]]
     with tempfile.TemporaryDirectory() as results:
@@ -3056,8 +3195,7 @@ def phase_train_fid(card: str, work: str) -> dict:
              "--device", DEV, "--results_dir", results], span=probe))
         fids = [r for r in read_scalars(os.path.join(results, "logs"))
                 if r["tag"] == "eval/fid"]
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     per_pass, _ = eval_counts(SIZE)
     expect = train_launches(trainer.g.log_size - 2)
     expect.update({"fid_reals": ((0, 0, 0), (0, 0, 0)),
@@ -3172,12 +3310,11 @@ def run_styleclip(card: str, work: str, name: str, flags: list, max_steps: int) 
     if DEV == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     coach = mapper_train.main([*styleclip_args(), *flags, "--max_steps", str(max_steps),
                                "--ir_se50_weights", files["arcface"], "--device", DEV,
                                "--exp_dir", exp_dir], span=probe)
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     peak = torch.cuda.max_memory_allocated() if DEV == "cuda" else 0
     check(coach.global_step == max_steps and coach.cfg.id_lambda > 0
           and coach.cfg.clip_lambda > 0, "the coach ran every step with both losses")
@@ -3261,17 +3398,18 @@ def phase_styleclip_inference(card: str, work: str, coach, exp_dir: str) -> dict
     w = coach.test_latents[:INFERENCE_LATENTS].cpu()
     torch.save(w, lat_path)
     out_dir = os.path.join(work, "styleclip_inference")
-    k1.launches = k2.launches = k3.launches = 0
+    zero_counters()
     results = mapper_inference.main(["--exp_dir", out_dir, "--checkpoint_path", ckpt,
                                      "--latents_test_path", lat_path, "--couple_outputs",
                                      "--test_batch_size", str(INFERENCE_BATCH),
                                      "--device", DEV])
-    launches = {"modconv3x3": k1.launches, "conv3x3": k2.launches,
-                "modconv1x1": k3.launches}
+    launches = launch_totals(launch_forms())
     n_batches = INFERENCE_LATENTS // INFERENCE_BATCH
     per_pass = coach.generator.log_size - 1
+    # K5 in each synthesis: an up-conv's blur and a ToRGB skip's Upsample an octave
     want = {"modconv3x3": 2 * per_pass * n_batches, "conv3x3": 0,
-            "modconv1x1": 2 * per_pass * n_batches}
+            "modconv1x1": 2 * per_pass * n_batches,
+            "upfirdn2d": 2 * 2 * (per_pass - 1) * n_batches}
     check(launches == want, f"inference launches {launches}, expected {want}")
     saved = torch.cat([torch.from_numpy(np.load(os.path.join(results, f"latents_{i:05d}.npy")))
                        for i in range(0, INFERENCE_LATENTS, INFERENCE_BATCH)])
@@ -3433,24 +3571,11 @@ LEVER_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier", 
               "--batch", str(LEVER_BATCH), "--iter", "2", "--seed", "0",
               "--save_every", "0", "--bf16", "--remat", "--d_bf16", "--d_remat",
               "--d_microbatch", "4", "--g_microbatch", "8"]
-KERNEL_NAMES = ("modconv3x3", "conv3x3", "modconv1x1")
-
-
-def zero_counters() -> None:
-    for k in (k1, k2, k3):
-        k.launches = k.launches_bf16 = 0
-
-
-def launch_forms() -> dict:
-    """{kernel: {"bf16": launches, "fp32": launches}} since the counters
-    were set to 0."""
-    return {name: {"bf16": k.launches_bf16, "fp32": k.launches - k.launches_bf16}
-            for name, k in zip(KERNEL_NAMES, (k1, k2, k3))}
-
-
 def check_all_bf16(what: str) -> dict:
+    """The launch forms, every K1-K3 launch a bf16 one (K5 also runs fp32
+    there: the ToRGB skip's input is the fp32 ToRGB output)."""
     forms = launch_forms()
-    check(all(f["fp32"] == 0 for f in forms.values()),
+    check(all(forms[k]["fp32"] == 0 for k in KERNEL_NAMES),
           f"{what}: fp32 kernel forms launched in a bf16 run: {forms}")
     return forms
 
@@ -4095,7 +4220,7 @@ def phase_dp(card: str, work: str) -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     forms = recs["train_bf16"][True]["forms"]
-    dp_check(recs["train_bf16"], all(f["fp32"] == 0 for f in forms.values()),
+    dp_check(recs["train_bf16"], all(forms[k]["fp32"] == 0 for k in KERNEL_NAMES),
              f"train_bf16: fp32 kernel forms launched: {forms}")
     for rec in recs.values():
         emit({"phase": "dp", "card": card, "world": 1, "backend": "nccl",
@@ -4117,7 +4242,7 @@ def phase_dp(card: str, work: str) -> dict:
 # --------------------------------------------------------------- phases 19-20
 class CountingSpan:
     """``cli/validate.py``'s span: each validator's wall ms (a ``StageTimer``
-    stage) and K1/K3 launches by form."""
+    stage) and the counted kernels' launches by form."""
 
     def __init__(self, timer, prefix: str = ""):
         self.timer, self.prefix, self.launches = timer, prefix, {}
@@ -4228,7 +4353,7 @@ def phase_validate_export(card: str, work: str, gan_ckpt: str) -> dict:
         report["mapper_wplus"] = json.load(f)["mapper"]
     launches = {**span.launches, **wplus_span.launches}
     validate_forms = {k: {f: sum(v[k][f] for v in launches.values()) for f in ("fp32", "bf16")}
-                      for k in KERNEL_NAMES}
+                      for k in COUNTERS}
     gates = {k: v.get("checks", v) for k, v in report.items() if k != "_summary"}
     emit({"phase": "validate", "card": card, "size": SIZE, "rc": [rc, rc_w],
           "summary": report["_summary"], "gates": gates,
@@ -4322,11 +4447,6 @@ def split_launches(g: Generator, n_sp: int = 0) -> dict:
         k1_n += bands * calls(g.convs[2 * oct_idx + 1].conv)
         k3_n += bands * calls(to_rgb.conv)
     return {"modconv3x3": k1_n, "modconv1x1": k3_n}
-
-
-def launch_totals(forms: dict) -> dict:
-    """{kernel: fp32 + bf16 launches} of a ``launch_forms()`` record."""
-    return {k: v["fp32"] + v["bf16"] for k, v in forms.items()}
 
 
 def compare_split(got, want) -> dict:
@@ -4565,6 +4685,7 @@ def main(argv=None) -> None:
         with tempfile.TemporaryDirectory() as work:
             totals = phase_kernels()
             totals_bf16 = phase_kernels_bf16()
+            totals_k5 = phase_kernels_k5()
             train_fwd_err, backward_err = phase_backward()
             backward_bf16_err = phase_backward_bf16()
             edit_launches, session, s_per_edit, s_p50 = phase_slice()
@@ -4615,13 +4736,13 @@ def main(argv=None) -> None:
             dp_launches = phase_dp(card, work)
             dp_bf16 = dp_launches.pop("train_bf16")
             bf16_launches["dp_train_bf16"] = {name: dp_bf16[name]["bf16"]
-                                              for name in KERNEL_NAMES}
+                                              for name in COUNTERS}
             split_launches_run = phase_validate_export(card, work, gan_ckpt)
             os.remove(gan_ckpt)
             torch.cuda.empty_cache()
             split_launches_run.update(phase_sp_tp(card, work))
             bf16_launches["validate"] = {name: split_launches_run["validate"][name]["bf16"]
-                                         for name in KERNEL_NAMES}
+                                         for name in COUNTERS}
     finally:
         if _out_file is not None:
             _out_file.close()
@@ -4643,19 +4764,23 @@ def main(argv=None) -> None:
         "modconv3x3": "tensor cores (wgmma), 3xTF32, on csrc/conv3x3_tc.cuh",
         "conv3x3": "tensor cores (wgmma), 3xTF32, on csrc/conv3x3_tc.cuh",
         "modconv1x1": "fp32 FMA units"}
+    def fp32_paths(name: str) -> dict:
+        """``name``'s launches in each fp32 main path's run."""
+        return {"edit": edit_launches[name],
+                "wplus_edit": wplus_launches[name], "server": server_launches[name],
+                "invert": invert_launches[name],
+                "train": train_launches_run[name], "cluster": cluster_launches[name],
+                "attention": attention_run[name], "mapper_load": load_launches[name],
+                "wplus_train": wplus_train_launches[name],
+                **{path: got[name] for path, got in eval_launches.items()},
+                **{path: got[name] for path, got in styleclip.items()},
+                **{f"dp_{path}": got[name]["fp32"] for path, got in dp_launches.items()},
+                **{path: got[name]["fp32"] for path, got in split_launches_run.items()}}
+
     kernels = []
     for name, (src, replaces) in sources.items():
         tot = totals[name]
-        by_path = {"edit": edit_launches.get(name, 0),
-                   "wplus_edit": wplus_launches[name], "server": server_launches[name],
-                   "invert": invert_launches[name],
-                   "train": train_launches_run[name], "cluster": cluster_launches[name],
-                   "attention": attention_run[name], "mapper_load": load_launches[name],
-                   "wplus_train": wplus_train_launches[name],
-                   **{path: got[name] for path, got in eval_launches.items()},
-                   **{path: got[name] for path, got in styleclip.items()},
-                   **{f"dp_{path}": got[name]["fp32"] for path, got in dp_launches.items()},
-                   **{path: got[name]["fp32"] for path, got in split_launches_run.items()}}
+        by_path = fp32_paths(name)
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
@@ -4749,6 +4874,31 @@ def main(argv=None) -> None:
                     "bf16 GAN run in a data-parallel group of one (phase 18, "
                     "dp_train_bf16) and cli/validate.py's bf16 synthesis of g_ema "
                     "(phase 19, validate)"})
+    for name in ("upfirdn2d", "upfirdn2d_bf16"):
+        tot = totals_k5[name]
+        by_path = (fp32_paths("upfirdn2d") if name == "upfirdn2d"
+                   else {path: got["upfirdn2d"] for path, got in bf16_launches.items()})
+        kernels.append({
+            "name": name, "route": "cuda", "source": "where2edit_tpu_torch/csrc/upfirdn2d.cu",
+            "replaces": "none: where2edit_tpu/ops/upfirdn2d.py is left to XLA (the port ran "
+                        "a stuffed and padded copy through cuDNN's depthwise conv)",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": tot["max_abs_err"], "max_rel_err": tot["max_rel_err"],
+            "ms": tot["ms"], "device_ms": tot["device_ms"], "plain_ms": tot["plain_ms"],
+            "bound_ms": tot["bound_ms"],
+            "bound_by": "bytes" if tot["bytes_s"] >= tot["ops_s"] else "operations",
+            "library_ms": tot["library_ms"], "library_device_ms": tot["library_device_ms"],
+            "core": "fp32 FMA units, 16-byte channel vectors a thread (one value a thread "
+                    "where C is not a multiple of the vector), rows slid through registers",
+            "note": "phase 3c: ms, device_ms, plain_ms, bound_ms, library_ms: sums over every "
+                    "upfirdn2d call site of the 1024² generator and discriminator at batch 8 "
+                    + ("(bar the fp32 ToRGB skip) in bf16" if name == "upfirdn2d_bf16"
+                       else "in fp32")
+                    + ", one call each; library_ms: cuDNN's depthwise conv on the stuffed, "
+                    "padded input, never called by the port; launches: "
+                    + ("the fp32 main paths' runs, as K1's" if name == "upfirdn2d"
+                       else "the bf16 runs, as K1-bf16's")
+                    + ", each with the counters set to 0 just before it"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,15 @@ Cout tiles, K3 at the few-block shapes of the edit path, and the backward
 of the three autograd Functions against autograd through the plain
 versions (also at the region-attention trainer's shapes: K3's weight
 gradient at the mapper's attention convs, K1's style and demod gradients on
-a frozen weight).
+a frozen weight). K5 (``upfirdn2d``) against its plain version at every
+call site of the 1024² models at batch 8 (the up-conv's blur at 8²-1024²
+and its Cout, the ToRGB skip's 3 channels, the discriminator's two blurs),
+on row bands as the SP path slices them (not contiguous across the batch),
+at a C that is not a multiple of 4, a non-separable and a non-square FIR,
+up and down together and a crop: one launch a call, two calls bitwise, the
+dense form where the models' 4x4 blurs meet 16-byte vectors; and its first
+and second derivatives (one launch each) against autograd through the plain
+version.
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
 
@@ -31,7 +39,10 @@ import torch
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upfirdn2d as k5
 from where2edit_tpu_torch.kernels.common import tc_prepared_plain
+from where2edit_tpu_torch.models.stylegan2 import channel_table
+from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d, upfirdn2d_plain
 
 pytestmark = pytest.mark.cuda
 
@@ -292,3 +303,123 @@ def test_torch_cuda_wrappers_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="Cout"):
         k3.modconv1x1(torch.randn(1, 8, 4, device=dev), torch.randn(1, 4, device=dev),
                       torch.randn(4, 40, device=dev))
+
+
+BLUR = make_kernel([1, 3, 3, 1])
+NONSEP = torch.randn(3, 3, generator=torch.Generator().manual_seed(5)).numpy()
+NONSQUARE = torch.randn(2, 4, generator=torch.Generator().manual_seed(6)).numpy()
+
+
+def k5_sites(batch: int = 8, skip: bool = True) -> list:
+    """(name, x shape, up, down, pad, FIR) of every upfirdn2d call of the
+    1024² generator and discriminator (config-f channels) at ``batch``: the
+    up-conv's blur at each output size and Cout, the ToRGB skip's Upsample
+    (3 channels; ``skip``), the discriminator's blur before each ResBlock's
+    3x3 and 1x1 stride-2 convs."""
+    ch = channel_table(2)
+    sites = [(f"g_blur_{r}", (batch, r + 1, r + 1, ch[r]), 1, 1, (1, 1), BLUR * 4)
+             for r in (8, 16, 32, 64, 128, 256, 512, 1024)]
+    if skip:
+        sites += [(f"skip_{2 * r}", (batch, r, r, 3), 2, 1, (2, 1), BLUR * 4)
+                  for r in (4, 8, 16, 32, 64, 128, 256, 512)]
+    for r in (1024, 512, 256, 128, 64, 32, 16, 8):
+        sites += [(f"d_blur_conv_{r}", (batch, r, r, ch[r]), 1, 1, (2, 2), BLUR),
+                  (f"d_blur_skip_{r}", (batch, r, r, ch[r]), 1, 1, (1, 1), BLUR)]
+    return sites
+
+
+K5_SITES = k5_sites()
+
+
+def _k5_pads(pad):
+    return (pad[0], pad[1], pad[0], pad[1])
+
+
+@pytest.mark.parametrize("name,shape,up,down,pad,fir", K5_SITES, ids=[s[0] for s in K5_SITES])
+def test_torch_cuda_upfirdn2d_sites(dev, name, shape, up, down, pad, fir):
+    g = torch.Generator(dev).manual_seed(sum(shape))
+    x = torch.randn(*shape, generator=g, device=dev)
+    n5 = k5.launches
+    got = upfirdn2d(x, fir, up=up, down=down, pad=pad)
+    again = upfirdn2d(x, fir, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert k5.launches == n5 + 2
+    assert torch.equal(got, again)
+    assert _rel(got, upfirdn2d_plain(x, fir, up, down, _k5_pads(pad))) <= REL
+    plan = k5.plan(x, got.shape[1], got.shape[2], up, down, *fir.shape)
+    assert plan["form"] == ("general" if shape[3] == 3 else "dense"), plan
+
+
+@pytest.mark.parametrize("shape,up,down,pad,fir", [
+    ((2, 9, 7, 5), 1, 1, (1, 1), BLUR),          # C not a multiple of 4
+    ((2, 9, 7, 12), 1, 1, (2, 1), NONSEP),       # non-separable
+    ((2, 9, 7, 8), 2, 1, (1, 2), NONSEP),
+    ((1, 17, 13, 4), 1, 2, (1, 1), BLUR),        # Downsample
+    ((2, 6, 5, 16), 2, 2, (1, 2), NONSQUARE),    # up and down together
+    ((3, 11, 9, 8), 1, 1, (-1, 2), BLUR),        # a crop
+    ((1, 70, 33, 64), 1, 1, (2, 2), BLUR),       # a run of rows past the last one
+    ((8, 1, 1, 512), 2, 1, (2, 1), BLUR * 4),    # a 1x1 input, up 2
+])
+def test_torch_cuda_upfirdn2d_ragged(dev, shape, up, down, pad, fir):
+    g = torch.Generator(dev).manual_seed(sum(shape) + up)
+    x = torch.randn(*shape, generator=g, device=dev)
+    n5 = k5.launches
+    got = upfirdn2d(x, fir, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert k5.launches == n5 + 1
+    assert _rel(got, upfirdn2d_plain(x, fir, up, down, _k5_pads(pad))) <= REL
+    dense = up == down == 1 and fir.shape == (4, 4) and shape[3] % 4 == 0
+    plan = k5.plan(x, got.shape[1], got.shape[2], up, down, *fir.shape)
+    assert plan["form"] == ("dense" if dense else "general"), plan
+
+
+@pytest.mark.parametrize("c,up,pad,fir", [(512, 1, (1, 1), BLUR * 4), (3, 2, (2, 1), BLUR * 4)])
+def test_torch_cuda_upfirdn2d_row_band(dev, c, up, pad, fir):
+    """A band of rows with its halo (``parallel/sp.py``): a slice along H of
+    a batch-8 tensor, taken as it comes (no copy), as the whole band."""
+    g = torch.Generator(dev).manual_seed(c)
+    whole = torch.randn(8, 64, 64, c, generator=g, device=dev)
+    band = whole[:, 15:33]
+    assert not band.is_contiguous()
+    got = upfirdn2d(band, fir, up=up, pad=pad)
+    want = upfirdn2d(band.contiguous(), fir, up=up, pad=pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _rel(got, upfirdn2d_plain(band, fir, up, 1, _k5_pads(pad))) <= REL
+
+
+@pytest.mark.parametrize("shape,up,down,pad,fir", [
+    ((8, 65, 65, 512), 1, 1, (1, 1), BLUR * 4),   # the up-conv's blur at 64²
+    ((8, 128, 128, 3), 2, 1, (2, 1), BLUR * 4),   # the skip at 256²
+    ((8, 128, 128, 256), 1, 1, (2, 2), BLUR),     # D's blurs at 128²
+    ((8, 128, 128, 256), 1, 1, (1, 1), BLUR),
+    ((2, 9, 7, 5), 1, 2, (1, 1), BLUR),
+    ((2, 9, 7, 8), 2, 1, (1, 2), NONSEP),
+    ((2, 6, 5, 16), 2, 2, (1, 2), NONSQUARE),
+])
+def test_torch_cuda_upfirdn2d_backward(dev, shape, up, down, pad, fir):
+    """dx and the double backward's d(dx)/d(dy) against autograd through
+    the plain version (its convs differentiated by ops.conv)."""
+    g = torch.Generator(dev).manual_seed(sum(shape) + 2 * up + down)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    x = r(*shape)
+    dy = r(*upfirdn2d_plain(x, fir, up, down, _k5_pads(pad)).shape)
+    v = r(*shape)
+
+    def grads(fn):
+        xl, dyl = x.clone().requires_grad_(True), dy.clone().requires_grad_(True)
+        y = fn(xl)
+        (gx,) = torch.autograd.grad(y, xl, dyl, create_graph=True)
+        (gdy,) = torch.autograd.grad(gx, dyl, v)
+        return y, gx, gdy
+
+    n5 = k5.launches
+    got = grads(lambda t: upfirdn2d(t, fir, up=up, down=down, pad=pad))
+    torch.cuda.synchronize()
+    assert k5.launches == n5 + 3  # forward, backward, double backward
+    want = grads(lambda t: upfirdn2d_plain(t, fir, up, down, _k5_pads(pad)))
+    for a, b in zip(got, want):
+        assert _rel(a, b) <= REL

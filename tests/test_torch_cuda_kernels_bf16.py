@@ -13,7 +13,12 @@ two calls bitwise, its work plan against the Python mirror in
 ``tests/torch_parity.py``); K1's bf16 weight
 preparation against its plain twin (bitwise) and a prepared call against
 one that prepares (bitwise); the backward of the bf16 calls against
-autograd through the twins.
+autograd through the twins. K5's bf16 form (``upfirdn2d``, bf16 in and out)
+at the bf16 trainers' call sites (the up-conv's blur and the
+discriminator's blurs at batch 8; the ToRGB skip stays fp32), at C not a
+multiple of 8 and a non-separable FIR, two calls bitwise, one bf16 launch a
+call, and its first and second derivatives; its twin is the plain version
+on the upcast input, rounded once.
 
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
@@ -34,7 +39,10 @@ from torch_parity import k3_bf16_plan
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upfirdn2d as k5
 from where2edit_tpu_torch.kernels.common import tc_prepared_plain
+from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d, upfirdn2d_plain
+from test_torch_cuda_kernels import NONSEP, k5_sites
 
 pytestmark = pytest.mark.cuda
 
@@ -254,3 +262,55 @@ def test_torch_cuda_wrappers_reject_mixed_dtypes(dev):
     with pytest.raises(TypeError):
         k3.modconv1x1(x.reshape(1, 16, 8), torch.randn(1, 8, device=dev),
                       torch.randn(8, 3, device=dev), out_dtype=torch.float16)
+
+
+def _k5_twin(x, fir, up, down, pad):
+    return upfirdn2d_plain(x.float(), fir, up, down, (*pad, *pad)).to(x.dtype)
+
+
+K5_BF16_SITES = k5_sites(skip=False) + [
+    ("ragged_c12", (2, 9, 7, 12), 1, 1, (2, 1), make_kernel([1, 3, 3, 1])),
+    ("ragged_c5_up", (2, 9, 7, 5), 2, 1, (2, 1), make_kernel([1, 3, 3, 1]) * 4),
+    ("nonseparable", (2, 9, 7, 16), 2, 1, (1, 2), NONSEP),
+]
+
+
+@pytest.mark.parametrize("name,shape,up,down,pad,fir", K5_BF16_SITES,
+                         ids=[s[0] for s in K5_BF16_SITES])
+def test_torch_cuda_upfirdn2d_bf16(dev, name, shape, up, down, pad, fir):
+    x = _gen(dev, sum(shape))(*shape).to(BF)
+    nb, n5 = k5.launches_bf16, k5.launches
+    got = upfirdn2d(x, fir, up=up, down=down, pad=pad)
+    again = upfirdn2d(x, fir, up=up, down=down, pad=pad)
+    torch.cuda.synchronize()
+    assert (k5.launches_bf16, k5.launches) == (nb + 2, n5 + 2)
+    assert got.dtype == BF and torch.equal(got, again)
+    assert _rel(got, _k5_twin(x, fir, up, down, pad)) <= REL
+
+
+@pytest.mark.parametrize("shape,up,down,pad,fir", [
+    ((8, 65, 65, 512), 1, 1, (1, 1), make_kernel([1, 3, 3, 1]) * 4),
+    ((8, 128, 128, 256), 1, 1, (2, 2), make_kernel([1, 3, 3, 1])),
+    ((2, 9, 7, 16), 2, 1, (1, 2), NONSEP),
+])
+def test_torch_cuda_upfirdn2d_bf16_backward(dev, shape, up, down, pad, fir):
+    """bf16 dx and double backward against the twin's in fp32 (rel L2)."""
+    r = _gen(dev, sum(shape) + 1)
+    x = r(*shape).to(BF)
+    dy = r(*_k5_twin(x, fir, up, down, pad).shape).to(BF)
+    v = r(*shape).to(BF)
+
+    def grads(fn, xs, dys, vs):
+        xl, dyl = xs.clone().requires_grad_(True), dys.clone().requires_grad_(True)
+        (gx,) = torch.autograd.grad(fn(xl), xl, dyl, create_graph=True)
+        (gdy,) = torch.autograd.grad(gx, dyl, vs)
+        return gx, gdy
+
+    nb = k5.launches_bf16
+    got = grads(lambda t: upfirdn2d(t, fir, up=up, down=down, pad=pad), x, dy, v)
+    torch.cuda.synchronize()
+    assert k5.launches_bf16 == nb + 3
+    want = grads(lambda t: upfirdn2d_plain(t, fir, up, down, (*pad, *pad)),
+                 x.float(), dy.float(), v.float())
+    for a, b in zip(got, want):
+        assert a.dtype == BF and _rel_l2(a, b) <= GRAD_REL_L2
