@@ -9,6 +9,10 @@ rows 0–2 from c3 (nominal 16²), 3–6 from p2 = up(c3) + latlayer1(c2)
 (32²), the rest from p1 = up(p2) + latlayer2(c1) (64²). Parameters in the
 reference layout (``styles.{i}.convs.{2j}``, ``styles.{i}.linear``,
 ``latlayer1/2``, ``linear``).
+
+The tracer's spans (``utils/profiling.py``): ``encoder.trunk`` around the
+IR-SE trunk as an encoder runs it, ``encoder.styles`` around the readout
+(the FPN laterals and the style blocks, or the W encoder's linear).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from torch import nn
 
 from where2edit_tpu_torch.models.irse import IRSEBody, conv2d
 from where2edit_tpu_torch.nn.layers import EqualLinear
+from where2edit_tpu_torch.utils.profiling import span
 
 # e4e's progressive training stage at inference: every row active
 PROGRESSIVE_STAGE_INFERENCE = 18
@@ -63,7 +68,8 @@ class _EncoderBase(IRSEBody):
 
     def _taps(self, x: torch.Tensor):
         """NHWC image -> (c1, c2, c3), NCHW."""
-        _, taps = self.trunk(x.permute(0, 3, 1, 2).contiguous())
+        with span("encoder.trunk"):
+            _, taps = self.trunk(x.permute(0, 3, 1, 2).contiguous())
         return taps[6], taps[20], taps[23]
 
 
@@ -87,14 +93,15 @@ class GradualStyleEncoder(_FPNEncoder):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c1, c2, c3 = self._taps(x)
-        rows = [self.styles[j](c3) for j in range(self.coarse_ind)]
-        p2 = _upsample_add(c3, self.latlayer1(c2))
-        rows += [self.styles[j](p2)
-                 for j in range(self.coarse_ind, self.middle_ind)]
-        p1 = _upsample_add(p2, self.latlayer2(c1))
-        rows += [self.styles[j](p1)
-                 for j in range(self.middle_ind, self.style_count)]
-        return torch.stack(rows, 1)
+        with span("encoder.styles"):
+            rows = [self.styles[j](c3) for j in range(self.coarse_ind)]
+            p2 = _upsample_add(c3, self.latlayer1(c2))
+            rows += [self.styles[j](p2)
+                     for j in range(self.coarse_ind, self.middle_ind)]
+            p1 = _upsample_add(p2, self.latlayer2(c1))
+            rows += [self.styles[j](p1)
+                     for j in range(self.middle_ind, self.style_count)]
+            return torch.stack(rows, 1)
 
 
 class Encoder4Editing(_FPNEncoder):
@@ -111,20 +118,21 @@ class Encoder4Editing(_FPNEncoder):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c1, c2, c3 = self._taps(x)
-        w0 = self.styles[0](c3)
-        rows = [w0]
-        features = c3
-        limit = min(self.progressive_stage + 1, self.style_count)
-        for i in range(1, self.style_count):
-            if i >= limit:
-                rows.append(w0)
-                continue
-            if i == self.coarse_ind:
-                p2 = features = _upsample_add(c3, self.latlayer1(c2))
-            elif i == self.middle_ind:
-                features = _upsample_add(p2, self.latlayer2(c1))
-            rows.append(w0 + self.styles[i](features))
-        return torch.stack(rows, 1)
+        with span("encoder.styles"):
+            w0 = self.styles[0](c3)
+            rows = [w0]
+            features = c3
+            limit = min(self.progressive_stage + 1, self.style_count)
+            for i in range(1, self.style_count):
+                if i >= limit:
+                    rows.append(w0)
+                    continue
+                if i == self.coarse_ind:
+                    p2 = features = _upsample_add(c3, self.latlayer1(c2))
+                elif i == self.middle_ind:
+                    features = _upsample_add(p2, self.latlayer2(c1))
+                rows.append(w0 + self.styles[i](features))
+            return torch.stack(rows, 1)
 
 
 class BackboneEncoderUsingLastLayerIntoW(_EncoderBase):
@@ -137,6 +145,8 @@ class BackboneEncoderUsingLastLayerIntoW(_EncoderBase):
         self.linear = EqualLinear(512, 512, lr_mul=1.0, rng=rng)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        feat, _ = self.trunk(x.permute(0, 3, 1, 2).contiguous())
-        w = self.linear(feat.mean((2, 3)))
-        return w[:, None, :].repeat(1, self.style_count, 1)
+        with span("encoder.trunk"):
+            feat, _ = self.trunk(x.permute(0, 3, 1, 2).contiguous())
+        with span("encoder.styles"):
+            w = self.linear(feat.mean((2, 3)))
+            return w[:, None, :].repeat(1, self.style_count, 1)

@@ -5,7 +5,8 @@
 ``state_dict`` (``encoder.*``, ``decoder.*``); ``from_state_dict`` splits
 those prefixes as the reference's ``get_keys`` does and takes the
 checkpoint's ``latent_avg`` (``(n_latent, 512)`` in e4e checkpoints, or
-``(512,)``).
+``(512,)``). ``encode`` is the tracer's span ``psp.encode``
+(``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from where2edit_tpu_torch.models.encoders import (
 )
 from where2edit_tpu_torch.models.stylegan2 import Generator
 from where2edit_tpu_torch.ops.interpolate import adaptive_avg_pool
+from where2edit_tpu_torch.utils import profiling
 
 ENCODER_TYPES = {
     "GradualStyleEncoder": (GradualStyleEncoder, "gradual"),
@@ -73,6 +75,7 @@ class PSp(nn.Module):
             avg = torch.as_tensor(avg, dtype=torch.float32).to(dev)
         return cls(encoder, decoder, avg).to(dev).eval()
 
+    @profiling.spanned("psp.encode")
     @torch.no_grad()
     def encode(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, 256, 256, 3) in [-1, 1] -> W+ (B, n_latent, 512), the

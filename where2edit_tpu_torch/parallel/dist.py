@@ -31,6 +31,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from where2edit_tpu_torch.utils import profiling
+
 _TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 
@@ -189,17 +191,19 @@ def all_reduce_grads(params) -> None:
     """Each parameter's ``.grad`` averaged over the ranks, through one
     flattened fp32 bucket (the gradient all-reduce GSPMD inserts in the JAX
     trainers). Parameters without a gradient are left so (every rank has
-    the same graph, so the same ones). No-op outside a group."""
+    the same graph, so the same ones). No-op outside a group; inside one,
+    the tracer's span ``parallel.all_reduce_grads``."""
     if not in_group():
         return
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    flat = torch.cat([g.reshape(-1).float() for g in grads])
-    dist.all_reduce(flat, group=_data_group)
-    flat.div_(data_world())
-    parts = flat.split([g.numel() for g in grads])
-    torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(parts, grads)])
+    with profiling.span("parallel.all_reduce_grads"):
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        dist.all_reduce(flat, group=_data_group)
+        flat.div_(data_world())
+        parts = flat.split([g.numel() for g in grads])
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(parts, grads)])
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
