@@ -58,6 +58,16 @@ Phases, each printing JSON lines (also appended to ``--out`` when given):
    by the port); the bound (bytes: x read once, the output written once;
    or the taps that land on real samples at 67 TFLOP/s) and
    ``bound_share``; a device time under 0.95 of its bound fails.
+3d. kernels_k4 — K4 (``upconv``) at the eight up-convs of the 1024²
+   generator (8²-1024² out, Cin/Cout 512…64/32) at batch 8: against its
+   plain twin (modulate, cuDNN's ``conv_transpose2d``, demod; ``K4_REL_TOL``),
+   two calls bitwise, one launch a call; its plan (items and blocks per
+   phase, shared memory); ms, device ms (CUDA graph), the twin's ms, and
+   ``library_ms``: cuDNN's ``conv_transpose2d`` on the modulated input plus
+   the demod pass (what the port ran before K4; never called by the port);
+   the bound (9·Cin·Cout MACs per input pixel at the 3xTF32 rate, bytes
+   beside it) and ``bound_share``, summed over the eight shapes (0.274 ms
+   per image); a device time under 0.95 of its bound fails.
 4. backward — K1, K2 and K3 at every shape of the 1024² training path:
    the forward as the trainer runs it (K1 with per-sample noise, bias and
    the activation; K2 with bias and the activation; K3 as ToRGB with bias
@@ -357,6 +367,7 @@ from where2edit_tpu_torch.kernels import common
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upconv as k4
 from where2edit_tpu_torch.kernels import upfirdn2d as k5
 from where2edit_tpu_torch.losses.clip_loss import CLIPLoss
 from where2edit_tpu_torch.losses.id_loss import IDLoss
@@ -450,6 +461,10 @@ TRAIN_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier",
 # ~1e-3 and the gradient, through a second rounding in the backward, by
 # ~1e-2.
 BF16_KERNEL_REL_TOL = 8e-3
+# K4 against its plain twin: 3xTF32 keeps fp32 accuracy; sums over at most
+# 4·512 K positions in another order, each stage's tensor-core sum
+# (truncating) added in fp32 (tests/test_torch_cuda_kernels.py)
+K4_REL_TOL = 2e-6
 BF16_BACKWARD_REL_L2 = 1e-2
 BF16_LOSS_REL_TOL = 1e-2
 BF16_MODEL_GRAD_TOL = 5e-2
@@ -566,7 +581,7 @@ def phase_build() -> None:
                             if "registers" in ln or "Compiling entry" in ln
                             or "spill" in ln]
     hgmma = {}
-    for name in ("modconv3x3", "conv3x3", "modconv1x1"):  # K1, K2 and K3-bf16 run wgmma
+    for name in ("modconv3x3", "conv3x3", "modconv1x1", "upconv"):  # K1-K4 run wgmma
         sass = subprocess.run([common.cuda_tool("cuobjdump"), "--dump-sass",
                                str(common.library_path(name))],
                               capture_output=True, text=True, timeout=120,
@@ -1131,6 +1146,79 @@ def phase_kernels_k5() -> dict:
     return totals
 
 
+def k4_shapes(batch: int = 8) -> list:
+    """(name, b, h, cin, cout) of the 1024² generator's eight up-convs: the
+    input at r/2, config-f's channels at r/2 in and at r out."""
+    ch = channel_table(2)
+    return [(f"up_{r}", batch, r // 2, ch[r // 2], ch[r])
+            for r in (8, 16, 32, 64, 128, 256, 512, 1024)]
+
+
+def phase_kernels_k4() -> dict:
+    """3d: K4 against its plain twin at ``k4_shapes``: max |Δ| / max |twin|
+    (``K4_REL_TOL``), two calls bitwise, one launch a call, the plan; ms,
+    device ms (CUDA graph), the twin's ms and, as ``library_ms``, cuDNN's
+    ``conv_transpose2d`` on the modulated input plus the demod multiply
+    (timed only, never called by the port); the bound at the 3xTF32 rate
+    (bytes beside it: x, the style, the weights, demod and the output once)
+    and ``bound_share``. A device time under ``BOUND_FLOOR`` of its bound
+    fails. Returns the totals over the eight shapes."""
+    dev = torch.device("cuda")
+    g = torch.Generator(dev).manual_seed(14)
+    summed = ("ms", "device_ms", "plain_ms", "library_ms", "library_device_ms", "bound_ms")
+    tot = {**dict.fromkeys(summed, 0.0), "bytes_s": 0.0, "ops_s": 0.0,
+           "max_abs_err": 0.0, "max_rel_err": 0.0, "launches_per_call": 1}
+    for site, b, h, cin, cout in k4_shapes():
+        x, style = torch.randn(b, h, h, cin, generator=g, device=dev), torch.randn(
+            b, cin, generator=g, device=dev)
+        w = torch.randn(cout, cin, 3, 3, generator=g, device=dev)
+        demod = torch.rand(b, cout, generator=g, device=dev) + 0.5
+        wp = k4.prepare_weight(w)
+
+        def kernel():
+            return k4.modupconv3x3(x, style, w, demod, prepared=wp)
+
+        def plain():
+            return k4.upconv_plain(x, style, w, demod)
+
+        xm = (x * style[:, None, None, :]).permute(0, 3, 1, 2)
+        wt = w.transpose(0, 1)
+
+        def library():
+            y = F.conv_transpose2d(xm, wt, stride=2)
+            return y * demod[:, :, None, None]
+
+        n4 = k4.launches
+        got, again = kernel(), kernel()
+        torch.cuda.synchronize()
+        check(k4.launches == n4 + 2, f"upconv {site}: launches {k4.launches - n4}")
+        check(torch.equal(got, again), f"upconv {site}: two calls differ")
+        abs_err, rel = rel_err(got, plain())
+        check(rel <= K4_REL_TOL, f"upconv {site}: rel {rel}")
+        rec = {"shape": f"{site} {b}x{h}x{h}x{cin}->{cout}", "max_abs_err": abs_err,
+               "max_rel_err": rel, "plan": k4.plan(b, h, h, cout),
+               "ms": time_ms(kernel, 60.0), "device_ms": graph_ms(kernel, 10),
+               "plain_ms": time_ms(plain, 60.0), "library_ms": time_ms(library, 60.0),
+               "library_device_ms": graph_ms(library, 10)}
+        nbytes = 4 * (x.numel() + style.numel() + w.numel() + demod.numel() + got.numel())
+        rec["bound_ms"], rec["bound_by"] = bound(nbytes, 2 * 9 * cin * cout * b * h * h,
+                                                 TC_3XTF32_FLOP_PER_S)
+        rec["bound_share"] = rec["bound_ms"] / rec["device_ms"]
+        emit({"phase": "kernels", "kernel": "upconv", **rec})
+        check(rec["device_ms"] >= BOUND_FLOOR * rec["bound_ms"],
+              f"upconv {site}: device_ms {rec['device_ms']} under {BOUND_FLOOR} of its "
+              f"bound {rec['bound_ms']}")
+        for key in summed:
+            tot[key] += rec[key]
+        tot["bytes_s" if rec["bound_by"] == "bytes" else "ops_s"] += rec["bound_ms"]
+        tot["max_abs_err"] = max(tot["max_abs_err"], abs_err)
+        tot["max_rel_err"] = max(tot["max_rel_err"], rel)
+        del x, got, again, xm, w, wp
+    tot["bound_share"] = tot["bound_ms"] / tot["device_ms"]
+    emit({"phase": "kernels", "kernel": "upconv", "shape": "total", **tot})
+    return tot
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the kernels' backward against autograd through the plain versions
 # ---------------------------------------------------------------------------
@@ -1265,19 +1353,25 @@ def phase_backward() -> tuple:
 # ---------------------------------------------------------------------------
 
 KERNEL_NAMES = ("modconv3x3", "conv3x3", "modconv1x1")
-COUNTERS = {"modconv3x3": k1, "conv3x3": k2, "modconv1x1": k3, "upfirdn2d": k5}
+COUNTERS = {"modconv3x3": k1, "conv3x3": k2, "modconv1x1": k3, "upfirdn2d": k5,
+            "upconv": k4}
 
 
 def zero_counters() -> None:
     for k in COUNTERS.values():
-        k.launches = k.launches_bf16 = 0
+        k.launches = 0
+        if hasattr(k, "launches_bf16"):  # K4 has no bf16 form
+            k.launches_bf16 = 0
 
 
 def launch_forms() -> dict:
     """{kernel: {"bf16": launches, "fp32": launches}} since the counters
     were set to 0."""
-    return {name: {"bf16": k.launches_bf16, "fp32": k.launches - k.launches_bf16}
-            for name, k in COUNTERS.items()}
+    forms = {}
+    for name, k in COUNTERS.items():
+        bf = getattr(k, "launches_bf16", 0)
+        forms[name] = {"bf16": bf, "fp32": k.launches - bf}
+    return forms
 
 
 def launch_totals(forms: dict) -> dict:
@@ -1421,8 +1515,8 @@ def phase_slice() -> tuple:
            "p50_edit_ms": statistics.median(lat), "edit_ms": lat,
            "p50_stage_ms": fenced_stages(session, toks, att),
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           # inside that peak: K1's prepared weights, kept per layer
-           "k1_prepared_cache_mib": sum(
+           # inside that peak: K1's and K4's prepared weights, kept per layer
+           "prepared_cache_mib": sum(
                m.prepared_bytes() for m in session.generator.modules()
                if isinstance(m, ModulatedConv2d)) / 2 ** 20}
     emit(rec)
@@ -1439,6 +1533,7 @@ CATEGORIES = (
     ("K2 conv3x3", ("conv3x3_k2",)),  # K2's tag, in both cores' kernel names
     ("K3 modconv1x1", ("modconv1x1",)),
     ("K5 upfirdn2d", ("upfirdn2d",)),
+    ("K4 upconv", ("upconv_k4",)),
     ("cuDNN depthwise conv (blurs)", ("conv2d_grouped",)),
     ("cuDNN depthwise input gradients (blur gradients)", ("dgrad2d_c1_k1",)),
     ("cuDNN weight gradients", ("wgrad",)),
@@ -3406,10 +3501,12 @@ def phase_styleclip_inference(card: str, work: str, coach, exp_dir: str) -> dict
     launches = launch_totals(launch_forms())
     n_batches = INFERENCE_LATENTS // INFERENCE_BATCH
     per_pass = coach.generator.log_size - 1
-    # K5 in each synthesis: an up-conv's blur and a ToRGB skip's Upsample an octave
+    # K5 in each synthesis: an up-conv's blur and a ToRGB skip's Upsample an
+    # octave; K4: the up-conv itself, once an octave
     want = {"modconv3x3": 2 * per_pass * n_batches, "conv3x3": 0,
             "modconv1x1": 2 * per_pass * n_batches,
-            "upfirdn2d": 2 * 2 * (per_pass - 1) * n_batches}
+            "upfirdn2d": 2 * 2 * (per_pass - 1) * n_batches,
+            "upconv": 2 * (per_pass - 1) * n_batches}
     check(launches == want, f"inference launches {launches}, expected {want}")
     saved = torch.cat([torch.from_numpy(np.load(os.path.join(results, f"latents_{i:05d}.npy")))
                        for i in range(0, INFERENCE_LATENTS, INFERENCE_BATCH)])
@@ -3571,12 +3668,19 @@ LEVER_ARGS = ["--synthetic", "16", "--size", str(SIZE), "--channel_multiplier", 
               "--batch", str(LEVER_BATCH), "--iter", "2", "--seed", "0",
               "--save_every", "0", "--bf16", "--remat", "--d_bf16", "--d_remat",
               "--d_microbatch", "4", "--g_microbatch", "8"]
+def bf16_only(forms: dict) -> bool:
+    """Every K1-K3 launch of a ``launch_forms()`` record a bf16 one, and no
+    K4 launch: K4 has no bf16 form, so a bf16 up-conv takes the plain path
+    (K5 also runs fp32 in a bf16 run: the ToRGB skip's input is the fp32
+    ToRGB output)."""
+    return (all(forms[k]["fp32"] == 0 for k in KERNEL_NAMES)
+            and forms["upconv"]["fp32"] == 0)
+
+
 def check_all_bf16(what: str) -> dict:
-    """The launch forms, every K1-K3 launch a bf16 one (K5 also runs fp32
-    there: the ToRGB skip's input is the fp32 ToRGB output)."""
+    """The launch forms, checked by ``bf16_only``."""
     forms = launch_forms()
-    check(all(forms[k]["fp32"] == 0 for k in KERNEL_NAMES),
-          f"{what}: fp32 kernel forms launched in a bf16 run: {forms}")
+    check(bf16_only(forms), f"{what}: fp32 kernel forms launched in a bf16 run: {forms}")
     return forms
 
 
@@ -3684,7 +3788,7 @@ def phase_train_bf16(card: str, work: str, fp32_peak_gib: float) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     forms = check_all_bf16("17a")
     launches = {k: v["bf16"] for k, v in forms.items()}
-    check(all(launches.values()), f"17a launches {launches}")
+    check(all(launches[k] for k in (*KERNEL_NAMES, "upfirdn2d")), f"17a launches {launches}")
     check(trainer.g.dtype == torch.bfloat16 and trainer.d.dtype == torch.bfloat16,
           "17a: a bf16 generator and discriminator")
     started = [n for (n, _), p0 in zip(trainer.g.named_parameters(), probe.start["g"])
@@ -3803,6 +3907,7 @@ def phase_attention_bf16(card: str, cluster_path: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     forms = launch_forms()
     check(forms["modconv3x3"]["fp32"] == forms["conv3x3"]["fp32"] == 0
+          and forms["upconv"]["fp32"] == 0
           and forms["modconv1x1"]["fp32"] == fp32_convs[0],
           f"17c attention: launches by form {forms}, fp32-input StyledConv calls "
           f"{fp32_convs[0]}")
@@ -4220,7 +4325,7 @@ def phase_dp(card: str, work: str) -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     forms = recs["train_bf16"][True]["forms"]
-    dp_check(recs["train_bf16"], all(forms[k]["fp32"] == 0 for k in KERNEL_NAMES),
+    dp_check(recs["train_bf16"], bf16_only(forms),
              f"train_bf16: fp32 kernel forms launched: {forms}")
     for rec in recs.values():
         emit({"phase": "dp", "card": card, "world": 1, "backend": "nccl",
@@ -4686,6 +4791,7 @@ def main(argv=None) -> None:
             totals = phase_kernels()
             totals_bf16 = phase_kernels_bf16()
             totals_k5 = phase_kernels_k5()
+            totals_k4 = phase_kernels_k4()
             train_fwd_err, backward_err = phase_backward()
             backward_bf16_err = phase_backward_bf16()
             edit_launches, session, s_per_edit, s_p50 = phase_slice()
@@ -4899,6 +5005,24 @@ def main(argv=None) -> None:
                     + ("the fp32 main paths' runs, as K1's" if name == "upfirdn2d"
                        else "the bf16 runs, as K1-bf16's")
                     + ", each with the counters set to 0 just before it"})
+    by_path = fp32_paths("upconv")
+    kernels.append({
+        "name": "upconv", "route": "cuda", "source": "where2edit_tpu_torch/csrc/upconv.cu",
+        "replaces": "none: where2edit_tpu/nn/layers.py::_conv_transpose2x is left to XLA (the "
+                    "port ran the modulation, cuDNN's fp32 conv_transpose2d and the demod pass)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        "max_abs_err": totals_k4["max_abs_err"], "max_rel_err": totals_k4["max_rel_err"],
+        **{k: totals_k4[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_share",
+                                     "library_ms", "library_device_ms")},
+        "bound_by": "bytes" if totals_k4["bytes_s"] >= totals_k4["ops_s"] else "operations",
+        "core": "tensor cores (wgmma), 3xTF32, the four sub-pixel phases of the transposed "
+                "conv as implicit GEMMs in one launch, one output tile a block, the heaviest "
+                "phase's tiles first (csrc/upconv.cu on csrc/conv3x3_tc.cuh)",
+        "note": "phase 3d: ms, device_ms, plain_ms, bound_ms, library_ms: sums over the 1024² "
+                "generator's eight up-convs at batch 8, one call each; library_ms: cuDNN's "
+                "conv_transpose2d on the modulated input and the demod multiply, never called "
+                "by the port; launches: the fp32 main paths' runs, as K1's, each with the "
+                "counters set to 0 just before it"})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,12 @@ at a C that is not a multiple of 4, a non-separable and a non-square FIR,
 up and down together and a crop: one launch a call, two calls bitwise, the
 dense form where the models' 4x4 blurs meet 16-byte vectors; and its first
 and second derivatives (one launch each) against autograd through the plain
-version.
+version. K4 (``upconv``) against its plain twin at the eight up-convs of
+config-f (8² to 1024² out, Cin/Cout 512 to 64/32) at batch 8 and at a
+ragged batch 3, at ragged Cin and Cout, without demod: one launch a call,
+its prepared weights bitwise their plain twin and bitwise the call that
+prepares its own; and its first and second derivatives against autograd
+through the plain twin.
 Marked ``cuda`` and skipped (by a fixture) without a CUDA device; on the
 card run it with
 
@@ -39,6 +44,7 @@ import torch
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upconv as k4
 from where2edit_tpu_torch.kernels import upfirdn2d as k5
 from where2edit_tpu_torch.kernels.common import tc_prepared_plain
 from where2edit_tpu_torch.models.stylegan2 import channel_table
@@ -423,3 +429,86 @@ def test_torch_cuda_upfirdn2d_backward(dev, shape, up, down, pad, fir):
     want = grads(lambda t: upfirdn2d_plain(t, fir, up, down, _k5_pads(pad)))
     for a, b in zip(got, want):
         assert _rel(a, b) <= REL
+
+
+# K4: 3xTF32 keeps fp32 accuracy; the sums over K (at most 4 taps · 512) run
+# in another order than cuDNN's, each stage's in a fresh tensor-core sum
+# (truncating) added in fp32: measured at most 9e-7 of the largest output
+# on an H100, so a K1-level bar of 2e-6
+K4_REL = 2e-6
+K4_SITES = [(r // 2, channel_table(2)[r // 2], channel_table(2)[r])
+            for r in (8, 16, 32, 64, 128, 256, 512, 1024)]
+
+
+def _k4_args(dev, b, h, w, cin, cout, seed, demod=True):
+    g = torch.Generator(dev).manual_seed(seed)
+
+    def r(*s):
+        return torch.randn(*s, generator=g, device=dev)
+
+    return (r(b, h, w, cin), r(b, cin), r(cout, cin, 3, 3),
+            r(b, cout).abs() + 0.5 if demod else None)
+
+
+@pytest.mark.parametrize("b", [8, 3])
+@pytest.mark.parametrize("h,cin,cout", K4_SITES, ids=[f"in{s[0]}" for s in K4_SITES])
+def test_torch_cuda_upconv_sites(dev, b, h, cin, cout):
+    x, style, wt, demod = _k4_args(dev, b, h, h, cin, cout, h + b)
+    n4, np4 = k4.launches, k4.prepares
+    wp = k4.prepare_weight(wt)
+    got = k4.modupconv3x3(x, style, wt, demod, prepared=wp)
+    torch.cuda.synchronize()
+    assert (k4.launches, k4.prepares) == (n4 + 1, np4 + 1)
+    assert got.shape == (b, 2 * h + 1, 2 * h + 1, cout)
+    assert _rel(got, k4.upconv_plain(x, style, wt, demod)) <= K4_REL
+    if b == 3:
+        assert torch.equal(wp.cpu(), k4.prepared_plain(wt.cpu()))
+        assert torch.equal(k4.modupconv3x3(x, style, wt, demod), got)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,demod", [
+    (2, 1, 1, 3, 5, True), (3, 5, 7, 6, 10, True), (2, 5, 7, 12, 36, False),
+    (3, 17, 9, 100, 70, True), (1, 33, 20, 513, 130, True), (2, 6, 6, 64, 33, False),
+])
+def test_torch_cuda_upconv_ragged(dev, b, h, w, cin, cout, demod):
+    args = _k4_args(dev, b, h, w, cin, cout, cin * cout, demod)
+    n4 = k4.launches
+    got = k4.modupconv3x3(*args)
+    torch.cuda.synchronize()
+    assert k4.launches == n4 + 1
+    assert _rel(got, k4.upconv_plain(*args)) <= K4_REL
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout", [(2, 5, 7, 12, 36), (2, 8, 8, 512, 512),
+                                             (2, 32, 32, 128, 64), (3, 9, 6, 13, 7)])
+def test_torch_cuda_upconv_backward(dev, b, h, w, cin, cout):
+    """First derivatives in x, style, w and demod, and second derivatives
+    (the path penalty's: the input gradient differentiated in style, w and
+    demod) against autograd through the plain twin."""
+    x, style, wt, demod = _k4_args(dev, b, h, w, cin, cout, 3 * cin + cout)
+    g = torch.Generator(dev).manual_seed(1)
+    dy = torch.randn(b, 2 * h + 1, 2 * w + 1, cout, generator=g, device=dev)
+    v = torch.randn(b, h, w, cin, generator=g, device=dev)
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_(True) for t in (x, style, wt, demod)]
+        first = torch.autograd.grad((fn(*leaves) * dy).sum(), leaves, create_graph=True)
+        second = torch.autograd.grad((first[0] * v).sum(), leaves[1:])
+        return first + second
+
+    n4 = k4.launches
+    got = grads(k4.modupconv3x3)
+    assert k4.launches == n4 + 1
+    for name, a, want in zip(("dx", "ds", "dw", "dd", "ds2", "dw2", "dd2"), got,
+                             grads(k4.upconv_plain)):
+        assert _rel(a.detach(), want.detach()) <= GRAD_REL, name
+
+
+def test_torch_cuda_upconv_rejects_bad_inputs(dev):
+    x, style, wt, demod = _k4_args(dev, 1, 4, 4, 8, 8, 0)
+    with pytest.raises(TypeError, match="float32"):
+        k4.modupconv3x3(x.bfloat16(), style, wt, demod)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.modupconv3x3(x.transpose(1, 2), style, wt, demod)
+    with pytest.raises(ValueError, match="shape"):
+        k4.modupconv3x3(x, style, wt[:, :4], demod)

@@ -14,6 +14,7 @@ import torch
 from where2edit_tpu.nn import layers as jl
 from where2edit_tpu_torch import convert
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upconv as k4
 from where2edit_tpu_torch.kernels.common import tc_prepared_plain
 from where2edit_tpu_torch.nn import layers as tl
 
@@ -124,11 +125,11 @@ def test_torch_equal_linear_and_pixel_norm():
 @pytest.mark.parametrize("k,up", [(3, False), (1, False), (3, True)])
 def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up, monkeypatch):
     """Inference reuses the kernel-layout weight, the demod norm and K1's
-    prepared buffer until the weight changes (load_state_dict, an in-place
-    update); with autograd on they are rebuilt each call, so gradients reach
-    the weight, and K1 prepares its own. The buffer is None on the CPU; with
-    its plain twin standing in for the card's preparation it follows the
-    updates."""
+    (K4's, upsampling) prepared buffer until the weight changes
+    (load_state_dict, an in-place update); with autograd on they are
+    rebuilt each call, so gradients reach the weight, and the kernel
+    prepares its own. The buffer is None on the CPU; with its plain twin
+    standing in for the card's preparation it follows the updates."""
     g = torch.Generator().manual_seed(k + 2 * up)
     m = tl.ModulatedConv2d(8, 12, k, 16, upsample=up, rng=g)
     x, style = torch.randn(2, 6, 6, 8, generator=g), torch.randn(2, 16, generator=g)
@@ -138,6 +139,7 @@ def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up, monkeypat
         assert m.prepared_weight() is first
         assert len(first) == 3 and first[2] is None
     monkeypatch.setattr(k1, "prepare_weight", tc_prepared_plain)
+    monkeypatch.setattr(k4, "prepare_weight", k4.prepared_plain)
     updates = [lambda: m.load_state_dict({**m.state_dict(),
                                           "weight": torch.randn(m.weight.shape,
                                                                 generator=g)}),
@@ -151,6 +153,8 @@ def test_torch_modulated_conv2d_prepared_weight_follows_updates(k, up, monkeypat
             if k == 3 and not up:
                 assert torch.equal(first[2], tc_prepared_plain(
                     m.weight[0].permute(2, 3, 1, 0)))
+            elif up:
+                assert torch.equal(first[2], k4.prepared_plain(m.weight[0]))
             else:
                 assert first[2] is None
         want, _ = m(x, style)  # autograd on: built afresh

@@ -27,7 +27,7 @@ from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-KERNEL_SOURCES = ("modconv3x3", "conv3x3", "modconv1x1", "upfirdn2d")
+KERNEL_SOURCES = ("modconv3x3", "conv3x3", "modconv1x1", "upfirdn2d", "upconv")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 

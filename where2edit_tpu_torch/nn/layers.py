@@ -12,11 +12,13 @@ one kernel call each on CUDA (K1 ``modconv3x3``, K3 ``modconv1x1``), and the
 layer that owns the epilogue passes it into that same call: a 3x3
 ``StyledConv`` fuses noise, bias and lrelu into K1; a 1x1 ``StyledConv`` and
 every ``ToRGB`` fuse theirs (ToRGB: bias, then the upsampled skip) into K3.
-The upsampling branch is plain PyTorch: transposed conv, demod, then
-``Blur(pad=(1, 1), ×4)``; so is the downsampling one, which no model
-builds (blur, stride-2 conv, demod). Its transposed conv, every plain conv
-with a trained weight and every FIR blur go through ``ops.conv``, whose
-gradient of a gradient stays one cuDNN call per convolution.
+The upsampling branch runs the modulation, the transposed conv and demod as
+one K4 call (``upconv``) for an fp32 input, then ``Blur(pad=(1, 1), ×4)``
+(K5) and the epilogue; a bf16 input takes the plain path (modulation,
+transposed conv, demod). The downsampling branch, which no model builds,
+is plain PyTorch (blur, stride-2 conv, demod). Every plain conv with a
+trained weight goes through ``ops.conv``, whose gradient of a gradient
+stays one cuDNN call per convolution; so do K4's gradients.
 
 The discriminator's layers (``EqualConv2d``, ``ConvLayer``, ``ResBlock``)
 keep the reference's ``nn.Sequential`` key layout (``convs.N.0.weight``,
@@ -46,8 +48,9 @@ from torch import nn
 from where2edit_tpu_torch.kernels import conv3x3 as k2
 from where2edit_tpu_torch.kernels import modconv1x1 as k3
 from where2edit_tpu_torch.kernels import modconv3x3 as k1
+from where2edit_tpu_torch.kernels import upconv as k4
 from where2edit_tpu_torch.kernels.common import plain_epilogue, upcast
-from where2edit_tpu_torch.ops.conv import conv2d, conv_transpose2d
+from where2edit_tpu_torch.ops.conv import conv2d
 from where2edit_tpu_torch.ops.fused_act import fused_leaky_relu
 from where2edit_tpu_torch.ops.upfirdn2d import make_kernel, upfirdn2d
 from where2edit_tpu_torch.utils import profiling
@@ -264,16 +267,17 @@ class ModulatedConv2d(nn.Module):
         return w[part * c:(part + 1) * c]
 
     def prepared_weight(self, dtype=torch.float32, part=None):
-        """(``_prepare`` of the current weight, K1's prepared buffer or
-        None), computed once per weight version, device, compute dtype and
+        """(``_prepare`` of the current weight, K1's or K4's prepared buffer
+        or None), computed once per weight version, device, compute dtype and
         tensor-parallel part (fixed at inference, so not redone each
         forward; a part's slice never shares the whole weight's entry);
         recomputed on every call when autograd needs a graph through it, and
-        then without K1's buffer (the kernel prepares its weights per call).
-        The buffer (``k1.prepare_weight``: the weights tiled for the tensor
-        cores of K1's ``dtype`` form, ~2·9·Cin·Cout floats in fp32, 9·Cin·Cout
-        bf16 values in bf16) exists for a non-resampling 3x3 conv on CUDA; it
-        is None on the CPU."""
+        then without a prepared buffer (the kernel prepares its weights per
+        call). The buffer (``k1.prepare_weight``: the weights tiled for the
+        tensor cores of K1's ``dtype`` form, ~2·9·Cin·Cout floats in fp32,
+        9·Cin·Cout bf16 values in bf16) exists for a non-resampling 3x3 conv
+        on CUDA, and K4's (``k4.prepare_weight``, ~2·9·Cin·Cout floats) for
+        an upsampling one in fp32; it is None on the CPU."""
         weight = self.weight
         if torch.is_grad_enabled() and weight.requires_grad:
             return (*self._prepare(self._part_weight(part)), None)
@@ -282,14 +286,17 @@ class ModulatedConv2d(nn.Module):
         if cached is None or cached[0] != key:
             with torch.no_grad():
                 wk, w2 = self._prepare(self._part_weight(part))
-                wp = (k1.prepare_weight(wk, dtype=dtype)
-                      if self.kernel_size == 3 and not self.resampled else None)
+                wp = None
+                if self.kernel_size == 3 and not self.resampled:
+                    wp = k1.prepare_weight(wk, dtype=dtype)
+                elif self.upsample and dtype == torch.float32:
+                    wp = k4.prepare_weight(wk)
             cached = self._prepared[part] = (key, (wk, w2, wp))
         return cached[1]
 
     def prepared_bytes(self) -> int:
-        """Bytes of the K1 prepared-weight buffers this layer holds (one per
-        tensor-parallel part)."""
+        """Bytes of the K1 or K4 prepared-weight buffers this layer holds
+        (one per tensor-parallel part)."""
         return sum(v[1][2].numel() * v[1][2].element_size()
                    for v in self._prepared.values() if v[1][2] is not None)
 
@@ -328,16 +335,17 @@ class ModulatedConv2d(nn.Module):
         style_eff = (self.scale * s).contiguous()
 
         if self.resampled:
-            xm = x * style_eff.to(dt)[:, None, None, :]
-            if self.upsample:
-                out = conv_transpose2d(xm.permute(0, 3, 1, 2),
-                                       wk.transpose(0, 1).to(dt), 2)
+            if self.upsample and dt != torch.bfloat16:
+                # modulation, transposed conv and demod: one K4 call
+                out = k4.modupconv3x3(x.contiguous(), style_eff, wk, demod, prepared=wp)
+            elif self.upsample:  # K4 has no bf16 form: its plain formula
+                out = k4.upconv_plain(x, style_eff.to(dt), wk.to(dt),
+                                      None if demod is None else demod.to(dt))
             else:
-                xm = self.blur(xm)
-                out = conv2d(xm.permute(0, 3, 1, 2), wk.to(dt), 2, 0)
-            out = out.permute(0, 2, 3, 1)
-            if demod is not None:
-                out = out * demod.to(dt)[:, None, None, :]
+                xm = self.blur(x * style_eff.to(dt)[:, None, None, :])
+                out = conv2d(xm.permute(0, 3, 1, 2), wk.to(dt), 2, 0).permute(0, 2, 3, 1)
+                if demod is not None:
+                    out = out * demod.to(dt)[:, None, None, :]
             if self.upsample:
                 out = self.blur(out)
             nz = None if noise is None else noise[..., 0]
@@ -359,8 +367,9 @@ class ModulatedConv2d(nn.Module):
                             out_dtype=out_dtype)
         return out.reshape(bsz, h, wd, -1)
 
-    # the upsampling layer's conv (transposed conv, demod, blur, epilogue),
-    # and its backward, as the spans layers.upconv(.backward)
+    # the upsampling layer's conv (K4 or the transposed conv and demod, then
+    # the blur and the epilogue), and its backward, as the spans
+    # layers.upconv(.backward)
     _upconv = profiling.spanned_layer("layers.upconv")(_conv)
 
 
